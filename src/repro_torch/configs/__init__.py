@@ -1,0 +1,1 @@
+"""configs of the PyTorch port (see the package docstring)."""

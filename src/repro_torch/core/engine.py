@@ -1,0 +1,391 @@
+"""Weight-stationary plan/execute CIM API and the backend registry.
+
+The paper's macro is weight-stationary: 8-bit weights are written into
+the P-8T SRAM arrays once and reused for every input vector.
+
+  plan_weights(w, cfg)        -> PlannedWeights   (once per weight)
+  execute(x, plan, policy)    -> y                (per input batch)
+
+``PlannedWeights`` holds everything the macro "stores": signed integer
+weight codes, optional bit-sliced planes and spread slots, the
+per-column code sums of the digital zero-point correction, and the
+per-output-channel dequantization scales. ``execute`` performs only the
+per-input work: activation quantization, the integer macro matmul and
+the digital dequant.
+
+Execution backends by string key:
+
+  "fp"          plain floating-point matmul (framework baseline)
+  "exact"       integer-exact quantized matmul (paper w/o ADC + noise)
+  "behavioral"  the ADC behavioral model through ``kernels.dispatch``
+  "cuda"        the same semantics through the hand-written GPQ kernel
+
+The mode names ('cim-exact', 'cim', 'cim-kernel') resolve to the same
+backends, so a ``CIMPolicy.mode`` string is a valid backend key.
+
+The one-shot straight-through (QAT) matmul comes with training
+(ROADMAP slice 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Protocol
+
+import torch
+
+from repro_torch.core import matmul as matmul_lib
+from repro_torch.core import quant
+from repro_torch.core.params import CIMConfig
+
+
+class CIMPolicyLike(Protocol):
+    """Structural type for repro_torch.configs.base.CIMPolicy."""
+
+    mode: str
+    cim: CIMConfig
+    act_symmetric: bool
+    act_clip_pct: float
+    ste: bool
+    backend: str
+
+
+# ---------------------------------------------------------------------------
+# PlannedWeights
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PlannedWeights:
+    """Persistent stored-weight state of one (stack of) linear layer(s).
+
+    Fields (all but ``codes``/``scale`` optional):
+      codes:   [..., K, N] signed weight codes (int8 when weight_bits<=8).
+      scale:   [..., 1, N] f32 per-output-channel dequant scale.
+      colsum:  [..., 1, N] f32 per-column sum of codes (zero-point fix).
+      w:       original full-precision weights, kept when the plan must
+               also serve non-CIM (fp / digitally-exempt) matmuls.
+      planes:  pre-grouped bit planes in the macro's row-group layout
+               (zero-padded along K), either unpacked [G, B, rows, N]
+               int8 0/1 planes or packed [G, rows, N] uint8 with 8
+               planes per byte (bit b is plane b).
+      slots:   [G, rows, S*N] f32 spread-slot planes
+               (``quant.spread_slots``); grouping is baked in, so unlike
+               ``planes`` this form cannot be regrouped.
+      weight_bits: weight precision.
+    """
+
+    codes: Any
+    scale: Any
+    colsum: Any = None
+    w: Any = None
+    planes: Any = None
+    slots: Any = None
+    weight_bits: int = 8
+
+    @property
+    def k(self) -> int:
+        return self.codes.shape[-2]
+
+    @property
+    def n(self) -> int:
+        return self.codes.shape[-1]
+
+    @property
+    def codes_i32(self) -> torch.Tensor:
+        c = self.codes
+        return c if c.dtype == torch.int32 else c.to(torch.int32)
+
+    def dequantized(self, dtype=torch.float32) -> torch.Tensor:
+        """w ~= scale * codes (the digital int8 serving read path)."""
+        return self.codes.to(dtype) * self.scale.to(dtype)
+
+    def best_weights(self, dtype=torch.float32) -> torch.Tensor:
+        """Full-precision weights if kept, else the dequantized codes."""
+        if self.w is not None:
+            return self.w.to(dtype)
+        return self.dequantized(dtype)
+
+
+# Above this reduction depth the behavioral planes are stored bit-packed
+# (8 planes per byte).
+PACK_PLANES_MIN_K = 4096
+
+
+# Spread-slot operands are kept for layers of up to this many weights
+# (the form costs 4 * n_slots bytes per weight).
+SLOTS_MAX_ELEMS = 1 << 22
+
+
+def _grouped_planes(
+    codes: torch.Tensor, cfg: CIMConfig, packed: bool = False
+) -> torch.Tensor:
+    """[K, N] signed codes -> grouped bit planes.
+
+    Group g holds rows g*rows..(g+1)*rows of every bit plane, zero-padded
+    along K. packed=False: [G, B, rows, N] int8 0/1 planes. packed=True:
+    [G, rows, N] uint8 whose bit b is plane b (the low ``weight_bits``
+    two's-complement bits of the code).
+    """
+    k, n = codes.shape
+    rows = cfg.rows_active
+    g = -(-k // rows)
+    if packed:
+        mask = (1 << cfg.weight_bits) - 1
+        u = torch.bitwise_and(codes.to(torch.int32), mask).to(torch.uint8)
+        u = torch.nn.functional.pad(u, (0, 0, 0, g * rows - k))
+        return u.reshape(g, rows, n)
+    b = cfg.weight_bits
+    p = quant.bitslice_weights(codes, b, dtype=torch.int8)  # [B, K, N]
+    p = torch.nn.functional.pad(p, (0, 0, 0, g * rows - k))
+    return p.reshape(b, g, rows, n).permute(1, 0, 2, 3).contiguous()
+
+
+def regroup_planes(
+    planes: torch.Tensor, k: int, to_rows: int
+) -> torch.Tensor:
+    """Regroup planned bit planes to a different ``rows_active``.
+
+    Ungroup along K, trim the old zero padding, re-pad and re-group at
+    ``to_rows``; both storage forms.
+    """
+    g2 = -(-k // to_rows)
+    if planes.ndim == 3:  # packed, 8 planes/byte
+        g, rows, n = planes.shape
+        flat = planes.reshape(g * rows, n)[:k]
+        flat = torch.nn.functional.pad(flat, (0, 0, 0, g2 * to_rows - k))
+        return flat.reshape(g2, to_rows, n)
+    g, b, rows, n = planes.shape
+    flat = planes.permute(1, 0, 2, 3).reshape(b, g * rows, n)[:, :k]
+    flat = torch.nn.functional.pad(flat, (0, 0, 0, g2 * to_rows - k))
+    return flat.reshape(b, g2, to_rows, n).permute(1, 0, 2, 3).contiguous()
+
+
+def plan_weights(
+    w: torch.Tensor,
+    cfg: CIMConfig | None = None,
+    policy: CIMPolicyLike | None = None,
+    *,
+    keep_fp: bool = True,
+) -> PlannedWeights:
+    """Precompute the weight-stationary state for ``execute``.
+
+    Args:
+      w: [..., K, N] float weights (last axis = output channels).
+      cfg: macro operating point; defaults to ``policy.cim`` or the
+        paper operating point.
+      policy: optional CIMPolicy. Under the behavioral mode ("cim") the
+        plan keeps the grouped bit planes of a 2-D weight, bit-packed
+        from K >= PACK_PLANES_MIN_K, and its spread-slot operand when the
+        packing is feasible and the layer has at most SLOTS_MAX_ELEMS
+        weights.
+      keep_fp: retain the original float weights.
+    """
+    if cfg is None:
+        cfg = policy.cim if policy is not None else CIMConfig()
+    mode = policy.mode if policy is not None else None
+    with_planes = mode in ("cim", "behavioral")
+
+    bits = cfg.weight_bits
+    # Quantize in f32 regardless of the storage dtype of w.
+    qw = quant.quantize_weights(w.to(torch.float32), bits)
+    codes = qw.codes.to(cfg.codes_dtype)
+    colsum = torch.sum(qw.codes, dim=-2, keepdim=True).to(torch.float32)
+    planes = slots = None
+    if with_planes:
+        if qw.codes.ndim != 2:
+            raise ValueError(
+                "planes need a 2-D [K, N] weight; got shape "
+                f"{tuple(qw.codes.shape)}"
+            )
+        k, n = qw.codes.shape
+        packed = k >= PACK_PLANES_MIN_K and bits <= 8
+        planes = _grouped_planes(qw.codes, cfg, packed=packed)
+        if k * n <= SLOTS_MAX_ELEMS and quant.slot_spec(
+            cfg.rows_active, cfg.act_bits, bits
+        ) is not None:
+            slots = quant.spread_slots(
+                qw.codes, cfg.rows_active, cfg.act_bits, bits
+            )
+    return PlannedWeights(
+        codes=codes,
+        scale=qw.scale.to(torch.float32),
+        colsum=colsum,
+        w=w if keep_fp else None,
+        planes=planes,
+        slots=slots,
+        weight_bits=bits,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Backend registry
+# ---------------------------------------------------------------------------
+
+# fn(x2 [M, K] float, plan, policy, generator) -> y2 [M, N] float
+BackendFn = Callable[..., torch.Tensor]
+
+_BACKENDS: dict[str, BackendFn] = {}
+
+# CIMPolicy.mode strings -> canonical backend keys.
+_MODE_ALIASES = {
+    "cim-exact": "exact",
+    "cim": "behavioral",
+    "cim-kernel": "cuda",
+}
+
+
+def register_backend(name: str, fn: BackendFn) -> None:
+    """Register an execution backend under a string key."""
+    if name in _MODE_ALIASES:
+        raise ValueError(
+            f"'{name}' is a reserved mode alias for "
+            f"'{_MODE_ALIASES[name]}'; register under the canonical key"
+        )
+    if name in _BACKENDS:
+        raise ValueError(f"backend '{name}' already registered")
+    _BACKENDS[name] = fn
+
+
+def get_backend(name: str) -> BackendFn:
+    """Resolve a backend key (canonical name or mode alias)."""
+    key = _MODE_ALIASES.get(name, name)
+    try:
+        return _BACKENDS[key]
+    except KeyError:
+        raise KeyError(
+            f"unknown CIM backend '{name}'; registered: "
+            f"{sorted(_BACKENDS)}"
+        ) from None
+
+
+def backend_names() -> tuple[str, ...]:
+    return tuple(sorted(_BACKENDS))
+
+
+def quantized_backend(int_fn) -> BackendFn:
+    """Wrap ``int_fn(x_codes, plan, cfg, generator) -> y_int`` with the
+    shared quantized-execution epilogue (the digital periphery of the
+    macro): dynamic activation quantization in, dequantization +
+    zero-point column correction out."""
+
+    def run(x2, plan, policy, generator):
+        cfg = policy.cim
+        qa = quant.quantize_acts(
+            x2,
+            cfg.act_bits,
+            symmetric=policy.act_symmetric,
+            clip_pct=policy.act_clip_pct,
+        )
+        y_int = int_fn(qa.codes, plan, cfg, generator)
+        colsum = plan.colsum
+        if colsum is None:  # minimal plans: recover digitally (free)
+            colsum = torch.sum(
+                plan.codes_i32, dim=-2, keepdim=True
+            ).to(torch.float32)
+        y = y_int - qa.zero_point.to(torch.float32) * colsum
+        return y * qa.scale * plan.scale
+
+    return run
+
+
+def _fp_backend(x2, plan, policy, generator):
+    del policy, generator
+    return x2 @ plan.best_weights(x2.dtype)
+
+
+def _exact_int(x_codes, plan, cfg, generator):
+    del cfg, generator
+    return matmul_lib.cim_matmul_exact_int(x_codes, plan.codes_i32)
+
+
+def _behavioral_int(x_codes, plan, cfg, generator):
+    # Route through the dispatch table: the backend resolves per shape
+    # from the heuristics (noise -> scan; the kernel on a CUDA device
+    # when the plan keeps no unpacked planes; else scan).
+    from repro_torch.kernels import dispatch  # dispatch imports engine
+
+    return dispatch.dispatch(
+        x_codes, plan.codes, cfg, generator=generator, planes=plan.planes,
+        slots=plan.slots,
+    )
+
+
+def _cuda_int(x_codes, plan, cfg, generator):
+    del generator  # the kernel is noiseless by design
+    from repro_torch.kernels import dispatch
+
+    return dispatch.dispatch(
+        x_codes, plan.codes, cfg, backend="cuda", planes=plan.planes
+    )
+
+
+register_backend("fp", _fp_backend)
+register_backend("exact", quantized_backend(_exact_int))
+register_backend("behavioral", quantized_backend(_behavioral_int))
+register_backend("cuda", quantized_backend(_cuda_int))
+
+
+# ---------------------------------------------------------------------------
+# execute
+# ---------------------------------------------------------------------------
+
+
+def execute(
+    x: torch.Tensor,
+    plan: PlannedWeights,
+    policy: CIMPolicyLike,
+    *,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Run one input batch against a precomputed weight plan.
+
+    The backend is ``policy.backend`` when set, else derived from
+    ``policy.mode`` through the registry aliases. Inputs of any rank are
+    flattened to [M, K] and restored afterwards.
+    """
+    name = getattr(policy, "backend", "") or policy.mode
+    fn = get_backend(name)
+    orig_shape = x.shape
+    x2 = x.reshape(-1, orig_shape[-1])
+    y = fn(x2, plan, policy, generator)
+    y = y.reshape(*orig_shape[:-1], plan.n)
+    if policy.mode != "fp":
+        y = y.to(x.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Whole-tree planning
+# ---------------------------------------------------------------------------
+
+# The leaf key of a linear layer's [K, N] weight (the port's models'
+# only matmul weight; conv filters are planned by models.resnet).
+_WEIGHT_KEY = "w"
+
+
+def plan_params(
+    params: Any,
+    cfg: CIMConfig | None = None,
+    policy: CIMPolicyLike | None = None,
+) -> Any:
+    """Rewrite every 2-D ``w`` leaf of a nested dict into a
+    PlannedWeights; other leaves pass through."""
+    if cfg is None:
+        cfg = policy.cim if policy is not None else CIMConfig()
+    # An fp plan serves the dequantized int8 weights: no float copy.
+    keep_fp = policy is not None and policy.mode != "fp"
+
+    def walk(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            elif k == _WEIGHT_KEY and isinstance(v, torch.Tensor) \
+                    and v.ndim == 2:
+                out[k] = plan_weights(v, cfg, policy, keep_fp=keep_fp)
+            else:
+                out[k] = v
+        return out
+
+    return walk(params)

@@ -1,0 +1,360 @@
+"""Variant-aware kernel dispatch: one table for every macro matmul.
+
+A ``KernelKey(variant, backend, shape_cell, dtype) -> implementation``
+map that ``engine.execute``'s behavioral and cuda backends route through.
+
+Backends registered for the P-8T variant:
+
+  "scan"    the group-loop transfer (core.matmul.cim_matmul_int). The
+            only backend that takes a noise request; peak memory is one
+            group tile, so it is the large-shape default.
+  "ref"     the vectorized formulation (kernels.ref.cim_matmul_ref).
+  "slots"   the spread-slot formulation (kernels.ref.cim_matmul_slots);
+            needs the plan's ``slots`` operand grouped at the executing
+            rows_active (it cannot be regrouped).
+  "cuda"    the hand-written Hopper kernel (kernels.cim_mac.gpq_matmul).
+            Noiseless. Consumes a plan's packed planes directly
+            (flatten-sliced to the [K, N] byte matrix).
+
+Resolution order when no backend is requested explicitly:
+
+  1. hardware-noise injection (``spec.noisy`` and a generator) requires
+     the scan transfer, recorded as source="noise";
+  2. heuristics: the slots form at small M when the plan carries it;
+     the variant's kernel when the operands are on a CUDA device and the
+     plan has no unpacked planes; otherwise the scan.
+
+There is no autotune cache yet (ROADMAP slice 5), so no "tuned" source.
+An explicit ``backend=`` request is always honored and any error it
+raises propagates; an implicit pick that raises the kernel's depth
+guard (``DepthGuardError``, a ``ValueError``) falls back to the scan and
+is recorded as "guard-fallback". Build, launch and operand errors
+always propagate. ``record_resolutions`` lets callers assert exactly
+which implementation ran.
+
+An implementation is ``fn(x_codes, w_codes, spec, *, generator=None,
+planes=None) -> [M, N] float32`` in integer-domain macro units (plus ``slots=`` for implementations registered with
+``supports_slots``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Any, Callable, Iterator
+
+import torch
+
+from repro_torch.core import matmul as matmul_lib
+from repro_torch.core.params import CIMConfig
+from repro_torch.core.pipeline import MacroSpec, as_spec
+from repro_torch.kernels import ref as ref_lib
+from repro_torch.kernels.cim_mac import DepthGuardError
+
+# fn(x_codes, w_codes, spec, *, generator, planes) -> [M, N] f32
+KernelFn = Callable[..., torch.Tensor]
+
+# Backend preference order.
+KNOWN_BACKENDS = ("scan", "ref", "slots", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelKey:
+    """Registration/lookup key of one kernel implementation.
+
+    ``shape_cell``/``dtype`` of None are wildcards; a non-None cell or
+    dtype registers a specialized kernel that wins over the generic one
+    (most-specific-first lookup).
+    """
+
+    variant: str
+    backend: str
+    shape_cell: tuple[int, int, int] | None = None
+    dtype: str | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelImpl:
+    """A registered implementation plus its capability flags."""
+
+    fn: KernelFn
+    supports_noise: bool = False
+    supports_planes: bool = False
+    supports_slots: bool = False
+    is_kernel: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Resolution:
+    """One dispatch decision."""
+
+    key: KernelKey
+    source: str  # "explicit" | "noise" | "heuristic" | "guard-fallback"
+
+
+_TABLE: dict[KernelKey, KernelImpl] = {}
+_LISTENERS: list[Callable[[Resolution], None]] = []
+
+
+def register_kernel(
+    key: KernelKey,
+    fn: KernelFn,
+    *,
+    supports_noise: bool = False,
+    supports_planes: bool = False,
+    supports_slots: bool = False,
+    is_kernel: bool = False,
+) -> KernelKey:
+    """Register one implementation under a KernelKey. Returns the key."""
+    if key in _TABLE:
+        raise ValueError(f"kernel {key} already registered")
+    _TABLE[key] = KernelImpl(
+        fn=fn,
+        supports_noise=supports_noise,
+        supports_planes=supports_planes,
+        supports_slots=supports_slots,
+        is_kernel=is_kernel,
+    )
+    return key
+
+
+def backends_for(variant: str) -> tuple[str, ...]:
+    """Registered backends of one variant, in preference order."""
+    got = {k.backend for k in _TABLE if k.variant == variant}
+    ordered = [b for b in KNOWN_BACKENDS if b in got]
+    return tuple(ordered + sorted(got - set(KNOWN_BACKENDS)))
+
+
+def has_kernel(variant: str) -> bool:
+    return any(k.variant == variant and _TABLE[k].is_kernel for k in _TABLE)
+
+
+_CELL_CAP = 8192
+
+
+def shape_cell(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """Bucket a concrete (M, K, N) into its tuning cell: each dim rounds
+    up to the next power of two, capped at 8192."""
+
+    def cell(d: int) -> int:
+        p = 1
+        while p < d and p < _CELL_CAP:
+            p *= 2
+        return p
+
+    return (cell(m), cell(k), cell(n))
+
+
+def lookup(
+    variant: str,
+    backend: str,
+    shape_cell: tuple[int, int, int] | None = None,
+    dtype: str | None = None,
+) -> KernelImpl | None:
+    """Most-specific-first table lookup."""
+    for key in (
+        KernelKey(variant, backend, shape_cell, dtype),
+        KernelKey(variant, backend, shape_cell, None),
+        KernelKey(variant, backend, None, dtype),
+        KernelKey(variant, backend, None, None),
+    ):
+        impl = _TABLE.get(key)
+        if impl is not None:
+            return impl
+    return None
+
+
+@contextlib.contextmanager
+def record_resolutions() -> Iterator[list[Resolution]]:
+    """Capture every dispatch decision made inside the context."""
+    log: list[Resolution] = []
+    _LISTENERS.append(log.append)
+    try:
+        yield log
+    finally:
+        _LISTENERS.remove(log.append)
+
+
+def _notify(res: Resolution) -> None:
+    for cb in _LISTENERS:
+        cb(res)
+
+
+def _has_backend(variant: str, backend: str) -> bool:
+    return any(k.variant == variant and k.backend == backend for k in _TABLE)
+
+
+# Largest M for which the heuristic takes the slots formulation: its
+# weight traffic is M-independent, so it wins the decode shapes.
+_SLOTS_HEURISTIC_MAX_M = 32
+
+
+def _heuristic_backend(
+    variant: str, planes, slots, m: int, device: torch.device
+) -> str:
+    if (
+        slots is not None
+        and m <= _SLOTS_HEURISTIC_MAX_M
+        and _has_backend(variant, "slots")
+    ):
+        return "slots"
+    # Unpacked pre-grouped planes are a weight-stationary optimization
+    # the kernel does not consume (packed planes it does, via the
+    # flatten-slice path): implicit routing keeps the plan semantics and
+    # takes the scan.
+    if (
+        (planes is None or planes.ndim == 3)
+        and device.type == "cuda"
+        and has_kernel(variant)
+    ):
+        return "cuda"
+    return "scan"
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def dispatch(
+    x_codes: torch.Tensor,
+    w_codes: torch.Tensor,
+    spec: CIMConfig | MacroSpec,
+    *,
+    variant: str = "p8t",
+    backend: str | None = None,
+    generator: torch.Generator | None = None,
+    planes: torch.Tensor | None = None,
+    slots: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Route one integer-domain macro matmul to its implementation.
+
+    Args:
+      x_codes: [M, K] activation codes; w_codes: [K, N] signed weight
+        codes (a plan's ``codes``, any integer dtype).
+      spec: the operating point.
+      variant: macro family name (only "p8t" is registered in this slice).
+      backend: explicit implementation choice; None = heuristic.
+      generator: hardware-noise request; routes an implicit pick to the
+        scan transfer.
+      planes: plan-grouped bit planes, forwarded to implementations that
+        consume them; regrouped to ``spec.rows_active`` only when the
+        chosen implementation reads them.
+      slots: plan spread-slot operand; dropped when grouped at another
+        rows_active.
+    """
+    spec = as_spec(spec)
+    m, k = x_codes.shape
+    n = w_codes.shape[-1]
+    cell = shape_cell(m, k, n)
+    dtype = _dtype_name(w_codes)
+    noisy = bool(spec.noisy) and generator is not None
+    if slots is not None and slots.shape[-2] != spec.rows_active:
+        slots = None  # the slot fields encode the grouping irreversibly
+
+    source = "explicit"
+    if backend is None:
+        if noisy:
+            backend, source = "scan", "noise"
+        else:
+            backend = _heuristic_backend(
+                variant, planes, slots, m, x_codes.device
+            )
+            source = "heuristic"
+
+    impl = lookup(variant, backend, cell, dtype)
+    if impl is None:
+        raise KeyError(
+            f"no kernel registered for variant='{variant}' "
+            f"backend='{backend}' (cell={cell}, dtype={dtype}); "
+            f"registered backends for this variant: {backends_for(variant)}"
+        )
+    _notify(Resolution(key=KernelKey(variant, backend, cell, dtype),
+                       source=source))
+
+    def planes_for(chosen: KernelImpl):
+        if not chosen.supports_planes or planes is None:
+            return None
+        if chosen.is_kernel or planes.shape[-2] == spec.rows_active:
+            # The kernel's flatten-slice path recovers the [K, N] byte
+            # matrix at any grouping: no regroup needed there.
+            return planes
+        from repro_torch.core import engine  # engine imports dispatch
+
+        return engine.regroup_planes(planes, k, spec.rows_active)
+
+    def run(chosen: KernelImpl):
+        kwargs: dict[str, Any] = dict(
+            generator=generator if chosen.supports_noise else None,
+            planes=planes_for(chosen),
+        )
+        if chosen.supports_slots:
+            kwargs["slots"] = slots
+        return chosen.fn(x_codes, w_codes, spec, **kwargs)
+
+    if source == "explicit" or backend == "scan":
+        return run(impl)
+    try:
+        return run(impl)
+    except DepthGuardError:
+        # The implicitly chosen kernel is infeasible at this depth: fall
+        # back to the always-feasible scan and record it. Explicit
+        # requests raise above; every other error propagates.
+        scan = lookup(variant, "scan", cell, dtype)
+        if scan is None:
+            raise
+        _notify(Resolution(
+            key=KernelKey(variant, "scan", cell, dtype),
+            source="guard-fallback",
+        ))
+        return run(scan)
+
+
+# ---------------------------------------------------------------------------
+# Built-in implementations
+# ---------------------------------------------------------------------------
+
+
+def _scan_impl(x_codes, w_codes, spec, *, generator=None, planes=None):
+    return matmul_lib.cim_matmul_int(
+        x_codes, w_codes, spec, generator=generator, planes=planes
+    )
+
+
+def _ref_impl(x_codes, w_codes, spec, *, generator=None, planes=None):
+    del generator  # noiseless vectorized formulation
+    return ref_lib.cim_matmul_ref(x_codes, w_codes, spec, planes=planes)
+
+
+def _slots_impl(x_codes, w_codes, spec, *, generator=None, planes=None,
+                slots=None):
+    del w_codes, generator, planes  # weight side IS the slot operand
+    if slots is None:
+        raise ValueError(
+            "slots backend requires a plan's spread-slot operand grouped "
+            "at the executing rows_active "
+            "(engine.plan_weights keeps one under the behavioral mode); "
+            "none provided"
+        )
+    return ref_lib.cim_matmul_slots(x_codes, slots, spec)
+
+
+def _cuda_impl(x_codes, w_codes, spec, *, generator=None, planes=None):
+    del generator  # noiseless
+    from repro_torch.kernels import ops  # loads the kernel wrapper lazily
+
+    if planes is not None and planes.ndim == 3:
+        # Packed plan planes [G, rows, N] uint8: bit b of each byte is
+        # the weight's two's-complement bit b, exactly the masked code
+        # the kernel unpacks. The flatten-slice recovers the [K, N] byte
+        # matrix at any grouping (the K-tail padding rows drop here).
+        k = x_codes.shape[1]
+        w_codes = planes.reshape(-1, planes.shape[-1])[:k]
+    return ops.cim_matmul_kernel(x_codes, w_codes, spec)
+
+
+register_kernel(KernelKey("p8t", "scan"), _scan_impl,
+                supports_noise=True, supports_planes=True)
+register_kernel(KernelKey("p8t", "ref"), _ref_impl, supports_planes=True)
+register_kernel(KernelKey("p8t", "slots"), _slots_impl, supports_slots=True)
+register_kernel(KernelKey("p8t", "cuda"), _cuda_impl,
+                supports_planes=True, is_kernel=True)
