@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -10,33 +10,49 @@ file; it exits non-zero without either. Phases (each one fails the run):
               convolutions (the digital layers and the exact products
               stay float32-exact).
   2. build    every CUDA kernel of the port from ``src/repro_torch/
-              kernels/csrc`` (nvcc, sm_90a), with the build seconds.
-  3. kernel   the GPQ kernel against its plain PyTorch version on the
-              card with ``torch.equal``: rows {4, 8, 16} x ADC bits
-              {3, 4, 5} at cutoff 0.5 plus the step-12 point, floor and
-              nearest, int8 codes and uint8 packed bytes, shapes that are
-              not tile multiples, and the ResNet's own operands at batch
-              256. Then the depth guard must raise.
-  4. slice    the committed ResNet checkpoint (widths 16/32/64, two
-              blocks per stage), planned under the paper policy, on 4
-              batches of 256 synthetic eval images under fp, cim-exact
-              and cim-kernel; the kernel's launch count over the
+              kernels/csrc`` (nvcc, sm_90a, one process per source, all
+              started together), with the build seconds, registers and
+              static shared memory per kernel.
+  3. kernel   each GPQ kernel (B1 gpq_matmul, B2 adder_tree_gpq_matmul,
+              B3 cell_adc_gpq_matmul) against its plain PyTorch version
+              on the card with ``torch.equal``: rows {4, 8, 16} x ADC
+              bits {3, 4, 5} at cutoff 0.5 plus the step-12 point, floor
+              and nearest, int8 codes and uint8 packed bytes, shapes that
+              are not tile multiples, and the ResNet's own 14 operands at
+              batch 256, on which B3 must also equal B1. Then each depth
+              guard must raise.
+  4. slice    slice 1's path: the committed ResNet checkpoint (widths
+              16/32/64, two blocks per stage), planned under the paper
+              policy, on 4 batches of 256 synthetic eval images under fp,
+              cim-exact and cim-kernel; B1's launch count over the
               cim-kernel run must be 14 per forward with only explicit
-              ("p8t", "cuda") dispatches; the same batches under the
-              scan twin on the card must give identical logits; the
-              card's cim-kernel logits must agree with the port's CPU
-              path on 8 images.
-  5. timings  each of the ResNet's kernel operands at batch 256: kernel
-              and plain-version times (CUDA events, median of 25 after
-              warm-up) beside the bound max(bytes / 3.35 TB/s,
-              plane-MAC ops / 1979 TOP/s int8); whole-forward images/s.
-  6. report   one JSON line listing every kernel of the port.
+              ("p8t", "cuda") dispatches; the same batches under the scan
+              twin on the card must give identical logits; the card's
+              cim-kernel logits must agree with the port's CPU path on 8
+              images.
+  5. variants slice 2's path: for each saved calibration result in
+              ``results/calibration/`` (p8t, adder-tree, cell-adc), load
+              it, register it as the "analog" backend and run the same
+              batches under cim-kernel: exactly 14 (variant, "cuda",
+              "heuristic") dispatches per forward, the variant's kernel
+              launched 14 times per forward, logits equal to the same
+              result's scan twin (mode cim); the cell-adc logits must
+              equal the p8t result's, and those slice 1's cim-kernel
+              logits; the card against the CPU path on 8 images.
+  6. timings  each of the ResNet's 14 kernel operands at batch 256, for
+              each kernel: kernel and plain-version times (CUDA events
+              around 10 back-to-back launches, median of 5 windows, after
+              warm-up) beside the bound
+              max(bytes / 3.35 TB/s, MAC ops / 1979 TOP/s int8);
+              whole-forward images/s per mode.
+  7. report   one JSON line listing every kernel of the port.
 
 The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import pathlib
@@ -53,6 +69,36 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 BATCH = 256
 N_BATCHES = 4
 MACRO_CONVS = 14  # per forward: stem and fc stay digital
+CALIBRATION_DIR = ROOT / "results" / "calibration"
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    name: str
+    variant: str
+    replaces: str  # the TPU kernel, file:line
+    per_plane: bool  # weight_bits plane MACs per weight MAC, else one
+    guard_k: int  # the smallest K its depth guard refuses (paper point)
+
+    def wrapper(self):
+        from repro_torch.kernels import cim_mac
+
+        return getattr(cim_mac, self.name)
+
+    def plain(self):
+        from repro_torch.kernels import cim_mac
+
+        return getattr(cim_mac, f"{self.name}_plain")
+
+
+KERNELS = (
+    Kernel("gpq_matmul", "p8t", "src/repro/kernels/cim_mac.py:280", True,
+           4096 * 16),
+    Kernel("adder_tree_gpq_matmul", "adder-tree",
+           "src/repro/kernels/cim_mac.py:331", False, 8192 * 16),
+    Kernel("cell_adc_gpq_matmul", "cell-adc",
+           "src/repro/kernels/cim_mac.py:386", True, 4096 * 16),
+)
 
 
 def log(*a):
@@ -68,21 +114,26 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median of per-launch CUDA-event times, after warm-up."""
+def cuda_time_ms(fn, windows: int = 5, per_window: int = 10,
+                 warmup: int = 3) -> float:
+    """Device time per launch: the median over ``windows`` CUDA-event
+    windows of ``per_window`` back-to-back launches each, after warm-up.
+    Launching back to back keeps the device queue ahead of the host, so a
+    short kernel's time is not padded by the wrapper's host-side work."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(windows):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(per_window):
+            fn()
         e.record()
         e.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / per_window)
     return statistics.median(times)
 
 
@@ -153,24 +204,24 @@ def phase_kernel(params, bn, images):
     import torch
 
     from repro_torch.core.params import CIMConfig
-    from repro_torch.kernels import cim_mac
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    max_err = 0.0
+    max_err = {k.name: 0.0 for k in KERNELS}
     checks = 0
 
-    def check(x, w, cfg, what):
-        nonlocal max_err, checks
-        want = cim_mac.gpq_matmul_plain(x, w, cfg)
+    def check(kern, x, w, cfg, what, want=None):
+        nonlocal checks
+        want = kern.plain()(x, w, cfg) if want is None else want
         for ww in (w, w.view(torch.uint8)):
-            got = cim_mac.gpq_matmul(x, ww, cfg)
+            got = kern.wrapper()(x, ww, cfg)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item() if got.numel() else 0.0
-            max_err = max(max_err, err)
+            max_err[kern.name] = max(max_err[kern.name], err)
             checks += 1
             if not torch.equal(got, want):
-                raise AssertionError(f"kernel != plain at {what} "
+                raise AssertionError(f"{kern.name} != plain at {what} "
                                      f"({ww.dtype}): max |err| {err}")
+        return want
 
     grid = [dict(rows_active=r, adc_bits=a, cutoff=0.5)
             for r in (4, 8, 16) for a in (3, 4, 5)]
@@ -185,37 +236,53 @@ def phase_kernel(params, bn, images):
                                   device="cuda", dtype=torch.int32)
                 w = torch.randint(-128, 128, (k, n), generator=gen,
                                   device="cuda", dtype=torch.int8)
-                check(x, w, cfg, f"{kw} {mode} {(m, k, n)}")
+                for kern in KERNELS:
+                    check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
     ops, spec = resnet_operands(params, bn, images)
     if len(ops) != MACRO_CONVS:
         raise AssertionError(f"{len(ops)} macro convs, want {MACRO_CONVS}")
+    b1, b2, b3 = KERNELS
     for mode in ("floor", "nearest"):
         cfg = spec.replace(adc_mode=mode)
         for name, x, w in ops:
-            check(x, w, cfg, f"{name} {tuple(x.shape)}x{tuple(w.shape)} "
-                  f"{mode}")
-    k = 4096 * 16
-    try:
-        cim_mac.gpq_matmul(torch.zeros((1, k), dtype=torch.int32,
-                                       device="cuda"),
-                           torch.zeros((k, 1), dtype=torch.int8,
-                                       device="cuda"), spec)
-    except ValueError as e:
-        log(f"[kernel] depth guard raises: {e}")
-    else:
-        raise AssertionError("depth guard did not raise at K=65536")
-    log(f"[kernel] gpq_matmul == plain (torch.equal) on {checks} cases; "
+            what = f"{name} {tuple(x.shape)}x{tuple(w.shape)} {mode}"
+            want_b1 = check(b1, x, w, cfg, what)
+            check(b2, x, w, cfg, what)
+            # B3's plain version must give B1's, and the kernel both.
+            want_b3 = b3.plain()(x, w, cfg)
+            if not torch.equal(want_b3, want_b1):
+                raise AssertionError(f"B3 plain != B1 plain at {what}")
+            check(b3, x, w, cfg, what, want=want_b3)
+            del want_b1, want_b3
+    for kern in KERNELS:
+        k = kern.guard_k
+        try:
+            kern.wrapper()(
+                torch.zeros((1, k), dtype=torch.int32, device="cuda"),
+                torch.zeros((k, 1), dtype=torch.int8, device="cuda"), spec)
+        except ValueError as e:
+            log(f"[kernel] {kern.name} depth guard raises at K={k}: {e}")
+        else:
+            raise AssertionError(f"{kern.name} depth guard did not raise "
+                                 f"at K={k}")
+        # One row group less passes.
+        kern.wrapper()(
+            torch.zeros((1, k - 16), dtype=torch.int32, device="cuda"),
+            torch.zeros((k - 16, 1), dtype=torch.int8, device="cuda"), spec)
+    torch.cuda.synchronize()
+    log(f"[kernel] every kernel == its plain version (torch.equal) on "
+        f"{checks} cases; B3 == B1 on the {MACRO_CONVS} ResNet operands; "
         f"max |err| {max_err}")
     return ops, spec, max_err
 
 
-def eval_mode(params, bn, batches, mode):
+def eval_mode(params, bn, batches, mode, backend=""):
     import torch
 
     from repro_torch.configs import resnet as rcfg
     from repro_torch.models import resnet
 
-    policy = rcfg.cim_policy(mode=mode)
+    policy = dataclasses.replace(rcfg.cim_policy(mode=mode), backend=backend)
     cfg = dataclasses.replace(rcfg.RESNET_CFG, cim=policy)
     p = params if mode == "fp" else resnet.plan_params(params, policy)
     logits = []
@@ -236,13 +303,38 @@ def eval_mode(params, bn, batches, mode):
     return logits, top1, len(logits) / secs
 
 
-def phase_slice(params, bn, batches):
+def card_vs_cpu(params, bn, img, mode, backend=""):
+    """The card's logits against the port's CPU path (the kernels' plain
+    versions) on a few images: the digital layers sum in another order
+    (cuDNN vs CPU), so logits agree to 2e-2 (they are O(10)) with the same
+    argmax."""
     import torch
 
     from repro_torch import convert
     from repro_torch.configs import resnet as rcfg
-    from repro_torch.kernels import cim_mac, dispatch
     from repro_torch.models import resnet
+
+    policy = dataclasses.replace(rcfg.cim_policy(mode=mode), backend=backend)
+    cfg = dataclasses.replace(rcfg.RESNET_CFG, cim=policy)
+    with torch.no_grad():
+        dev, _ = resnet.forward(resnet.plan_params(params, policy), bn, img,
+                                cfg)
+        host, _ = resnet.forward(
+            resnet.plan_params(convert.to_torch(params, device="cpu"),
+                               policy),
+            convert.to_torch(bn, device="cpu"), img.cpu(), cfg)
+    diff = (dev.cpu() - host).abs().max().item()
+    same = torch.equal(dev.cpu().argmax(-1), host.argmax(-1))
+    if diff > 2e-2 or not same:
+        raise AssertionError(f"card and CPU paths disagree ({mode} "
+                             f"{backend}): {diff}, same top-1 {same}")
+    return diff
+
+
+def phase_slice(params, bn, batches):
+    import torch
+
+    from repro_torch.kernels import cim_mac, dispatch
 
     results = {}
     for mode in ("fp", "cim-exact"):
@@ -274,56 +366,106 @@ def phase_slice(params, bn, batches):
             f"{len(batches) * BATCH} images, {ips:.1f} images/s")
     if results["fp"][0] < 0.9 or results["cim-exact"][0] < 0.9:
         raise AssertionError(f"fp/cim-exact top-1 below 0.9: {results}")
-
-    # The card against the port's CPU path (plain kernel version) on 8
-    # images: the digital layers sum in another order (cuDNN vs CPU), so
-    # logits agree to 2e-2 (they are O(10)) with the same argmax.
-    policy = rcfg.cim_policy(mode="cim-kernel")
-    cfg = dataclasses.replace(rcfg.RESNET_CFG, cim=policy)
-    img = batches[0][0][:8]
-    with torch.no_grad():
-        dev, _ = resnet.forward(resnet.plan_params(params, policy), bn, img,
-                                cfg)
-        host, _ = resnet.forward(
-            resnet.plan_params(convert.to_torch(params, device="cpu"),
-                               policy),
-            convert.to_torch(bn, device="cpu"), img.cpu(), cfg)
-    diff = (dev.cpu() - host).abs().max().item()
-    same = torch.equal(dev.cpu().argmax(-1), host.argmax(-1))
+    diff = card_vs_cpu(params, bn, batches[0][0][:8], "cim-kernel")
     log(f"[slice] card vs CPU path on 8 images: max |dlogit| {diff:.3g}, "
-        f"same top-1: {same}")
-    if diff > 2e-2 or not same:
-        raise AssertionError("card and CPU paths disagree")
+        f"same top-1: True")
+    return launches, kern_logits
+
+
+def phase_variants(params, bn, batches, slice1_logits):
+    """Slice 2: each saved calibration result through the kernels."""
+    import torch
+
+    from repro_torch.core import calibrate
+    from repro_torch.kernels import cim_mac, dispatch
+
+    launches, logits = {}, {}
+    want = MACRO_CONVS * len(batches)
+    for kern in KERNELS:
+        v = kern.variant
+        res = calibrate.load_result(
+            CALIBRATION_DIR / f"resnet_paper_{v}.json")
+        if {lc.variant for lc in res.layers.values()} != {v} or \
+                len(res.layers) != MACRO_CONVS:
+            raise AssertionError(f"{v}: unexpected calibration result")
+        res.register("analog", overwrite=True)
+        cim_mac.LAUNCHES.clear()
+        with dispatch.record_resolutions() as log_k:
+            lk, top1, ips = eval_mode(params, bn, batches, "cim-kernel",
+                                      backend="analog")
+        launches[kern.name] = cim_mac.LAUNCHES[kern.name]
+        other = sum(cim_mac.LAUNCHES.values()) - launches[kern.name]
+        kinds = collections.Counter(
+            (r.key.variant, r.key.backend, r.source) for r in log_k)
+        if kinds != {(v, "cuda", "heuristic"): want}:
+            raise AssertionError(f"{v}: resolutions {dict(kinds)}, want "
+                                 f"{want} ({v}, cuda, heuristic)")
+        if launches[kern.name] != want or other:
+            raise AssertionError(
+                f"{v}: {kern.name} launched {launches[kern.name]} times "
+                f"(other kernels {other}) over {len(batches)} forwards, "
+                f"want {want}")
+        with dispatch.record_resolutions() as log_s:
+            ls, top1_s, ips_s = eval_mode(params, bn, batches, "cim",
+                                          backend="analog")
+        kinds = {(r.key.variant, r.key.backend, r.source) for r in log_s}
+        if kinds != {(v, "scan", "heuristic")}:
+            raise AssertionError(f"{v}: cim did not run the scan twin: "
+                                 f"{kinds}")
+        if not torch.equal(lk, ls):
+            d = (lk - ls).abs().max().item()
+            raise AssertionError(f"{v}: cim-kernel logits != scan ({d})")
+        diff = card_vs_cpu(params, bn, batches[0][0][:8], "cim-kernel",
+                           backend="analog")
+        logits[v] = lk
+        log(f"[variants] {v:10s} top-1 {top1:.4f} over "
+            f"{len(batches) * BATCH} images; cim-kernel {ips:.1f} "
+            f"images/s, scan twin {ips_s:.1f} images/s; {kern.name} "
+            f"launched {launches[kern.name]} times ({want // len(batches)} "
+            f"per forward); logits == scan twin; card vs CPU on 8 images "
+            f"max |dlogit| {diff:.3g}")
+    if not torch.equal(logits["cell-adc"], logits["p8t"]):
+        raise AssertionError("cell-adc logits != p8t logits")
+    if not torch.equal(logits["p8t"], slice1_logits):
+        raise AssertionError("p8t calibrated logits != slice 1 cim-kernel")
+    log("[variants] cell-adc logits == p8t logits == slice 1 cim-kernel "
+        "logits")
     return launches
 
 
 def phase_timings(ops, spec):
-    from repro_torch.kernels import cim_mac
-
-    rows = []
-    for name, x, w in ops:
-        m, k = x.shape
-        n = w.shape[1]
-        ms = cuda_time_ms(lambda x=x, w=w: cim_mac.gpq_matmul(x, w, spec))
-        plain_ms = cuda_time_ms(
-            lambda x=x, w=w: cim_mac.gpq_matmul_plain(x, w, spec))
-        nbytes = m * k * x.element_size() + k * n * w.element_size() + m * n * 4
-        ops_ = 2 * m * k * n * spec.weight_bits  # one MAC per plane bit
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops_ / INT8_OPS_PER_S * 1e3
-        bound = max(bytes_ms, ops_ms)
-        rows.append((ms, plain_ms, bound, bytes_ms >= ops_ms))
-        log(f"[timing] {name:12s} [{m}, {k}]x[{k}, {n}]: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
-            f"{nbytes / 1e6:.1f} MB, {ops_ / 1e9:.2f} G plane-MAC ops); "
-            f"library: none (no single PyTorch call computes GPQ)")
-    tot = [sum(r[i] for r in rows) for i in range(3)]
-    log(f"[timing] one forward's 14 launches: kernel {tot[0]:.4f} ms, "
-        f"plain {tot[1]:.4f} ms, bound {tot[2]:.4f} ms")
-    bound_by = "bytes" if sum(r[3] for r in rows) * 2 >= len(rows) else \
-        "operations"
-    return tot, bound_by
+    rows = {}
+    for kern in KERNELS:
+        per_op = []
+        for name, x, w in ops:
+            m, k = x.shape
+            n = w.shape[1]
+            ms = cuda_time_ms(
+                lambda x=x, w=w, f=kern.wrapper(): f(x, w, spec))
+            plain_ms = cuda_time_ms(
+                lambda x=x, w=w, f=kern.plain(): f(x, w, spec))
+            nbytes = (m * k * x.element_size() + k * n * w.element_size()
+                      + m * n * 4)
+            macs = m * k * n * (spec.weight_bits if kern.per_plane else 1)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
+            per_op.append((ms, plain_ms, max(bytes_ms, ops_ms),
+                           bytes_ms >= ops_ms))
+            log(f"[timing] {kern.name:22s} {name:12s} [{m}, {k}]x[{k}, {n}]: "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{max(bytes_ms, ops_ms):.4f} ms "
+                f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
+                f"{nbytes / 1e6:.1f} MB, {2 * macs / 1e9:.2f} G int8 "
+                f"ops)")
+        tot = [sum(r[i] for r in per_op) for i in range(3)]
+        bound_by = ("bytes" if sum(r[3] for r in per_op) * 2 >= len(per_op)
+                    else "operations")
+        log(f"[timing] {kern.name}: one forward's {len(per_op)} launches: "
+            f"kernel {tot[0]:.4f} ms, plain {tot[1]:.4f} ms, bound "
+            f"{tot[2]:.4f} ms ({bound_by}); library: none (no single "
+            f"PyTorch call computes a GPQ transfer)")
+        rows[kern.name] = (*tot, bound_by)
+    return rows
 
 
 def main() -> int:
@@ -343,22 +485,23 @@ def main() -> int:
                         torch.from_numpy(b["label"]).long().cuda()))
 
     ops, spec, max_err = phase_kernel(params, bn, batches[0][0])
-    launches = phase_slice(params, bn, batches)
-    (ms, plain_ms, bound_ms), bound_by = phase_timings(ops, spec)
+    _, slice1_logits = phase_slice(params, bn, batches)
+    launches = phase_variants(params, bn, batches, slice1_logits)
+    timings = phase_timings(ops, spec)
 
     report = {"kernels": [{
-        "name": "gpq_matmul",
+        "name": kern.name,
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/gpq_matmul.cu",
-        "replaces": "src/repro/kernels/cim_mac.py:280",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "source": f"src/repro_torch/kernels/csrc/{kern.name}.cu",
+        "replaces": kern.replaces,
+        "launches": launches[kern.name],
+        "max_abs_err": max_err[kern.name],
+        "ms": timings[kern.name][0],
+        "plain_ms": timings[kern.name][1],
+        "bound_ms": timings[kern.name][2],
+        "bound_by": timings[kern.name][3],
         "library_ms": None,
-    }]}
+    } for kern in KERNELS]}
     log(json.dumps(report))
     log(card)
     print(json.dumps({"ok": True, "device": {

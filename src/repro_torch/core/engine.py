@@ -20,6 +20,9 @@ Execution backends by string key:
   "behavioral"  the ADC behavioral model through ``kernels.dispatch``
   "cuda"        the same semantics through the hand-written GPQ kernel
 
+``core.calibrate.CalibrationResult.register`` adds a backend that runs
+each layer at its calibrated operating point and macro variant.
+
 The mode names ('cim-exact', 'cim', 'cim-kernel') resolve to the same
 backends, so a ``CIMPolicy.mode`` string is a valid backend key.
 
@@ -235,15 +238,24 @@ _MODE_ALIASES = {
 }
 
 
-def register_backend(name: str, fn: BackendFn) -> None:
-    """Register an execution backend under a string key."""
+def register_backend(
+    name: str, fn: BackendFn, *, overwrite: bool = False
+) -> None:
+    """Register an execution backend under a string key.
+
+    ``overwrite=True`` replaces an existing registration (a calibration
+    result re-registered under the same name).
+    """
     if name in _MODE_ALIASES:
         raise ValueError(
             f"'{name}' is a reserved mode alias for "
             f"'{_MODE_ALIASES[name]}'; register under the canonical key"
         )
-    if name in _BACKENDS:
-        raise ValueError(f"backend '{name}' already registered")
+    if name in _BACKENDS and not overwrite:
+        raise ValueError(
+            f"backend '{name}' already registered (overwrite=True to "
+            "replace)"
+        )
     _BACKENDS[name] = fn
 
 

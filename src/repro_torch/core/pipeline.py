@@ -1,22 +1,34 @@
-"""Declarative operating-point records of the analog macro pipeline.
+"""Composable analog macro pipeline: typed, swappable stages.
 
 The macro cycle (DA conversion -> multiply/accumulate -> ADC ->
-shift-add) is described by a :class:`MacroSpec`: a composition of
-per-stage specs (:class:`DACSpec`, :class:`AMUSpec`, :class:`ADCSpec`).
+shift-add) is an :class:`AnalogPipeline` of stage transforms, each
+``(state, spec) -> state``:
+
+  DACStage      BL charge-sharing DA conversion (16 local arrays)
+  AMUStage      P-8T multiply + eACC ABL charge-sharing accumulation
+  ADCStage      coarse-fine flash against the AMU_REF reference columns
+  ShiftAddStage digital bit-plane recombination
+
+The operating point is a :class:`MacroSpec`: a composition of per-stage
+specs (:class:`DACSpec`, :class:`AMUSpec`, :class:`ADCSpec`).
 ``MacroSpec`` is attribute-compatible with ``CIMConfig`` (same derived
 quantities), so every consumer of an operating point takes either;
-``MacroSpec.from_config`` / ``to_config`` convert losslessly.
-
-Only the spec records are here; the pipeline stages themselves come
-with the analog pipeline slice (ROADMAP slice 4).
+``MacroSpec.from_config`` / ``to_config`` convert losslessly. The macro
+variants of ``core.variants`` are pipelines with swapped stages.
+Hardware-noise injection comes with slice 4 of ROADMAP.md: a noisy run
+with a generator raises in the DAC and ADC stages.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Protocol, runtime_checkable
 
 import torch
 
+from repro_torch.core import adc as adc_lib
+from repro_torch.core import dac as dac_lib
+from repro_torch.core import quant
 from repro_torch.core.params import ADCMode, CIMConfig
 
 
@@ -285,3 +297,182 @@ def as_spec(cfg: CIMConfig | MacroSpec) -> MacroSpec:
 # The paper's published operating points, in declarative form.
 PAPER_MACRO_16ROWS = MacroSpec()
 PAPER_MACRO_8ROWS = MacroSpec(amu=AMUSpec(rows_active=8))
+
+
+# ---------------------------------------------------------------------------
+# Pipeline state and stages
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MacroState:
+    """The typed state a macro cycle threads through the stages.
+
+    Stages read the fields earlier stages produced and fill in their
+    own; unset fields are None.
+
+      x_codes    [rows] int input codes (as presented to the macro)
+      w_planes   [B, rows, n_out] 0/1 stored bit planes
+      x_active   [rows] int codes after the row-activation mask (DAC)
+      v_rows     [rows] f32 shared CBL/iBL voltages (DAC)
+      v_abl      [n_out, B] f32 accumulated ABL voltages (AMU)
+      adc_codes  [n_out, B] int32 flash codes (ADC)
+      outputs    [n_out] f32 digital shift-add results (ShiftAdd)
+      pmac_ideal [n_out, B] int32 noiseless reference partial MACs
+      generator  hardware-noise request (raises; slice 4)
+    """
+
+    x_codes: Any = None
+    w_planes: Any = None
+    x_active: Any = None
+    v_rows: Any = None
+    v_abl: Any = None
+    adc_codes: Any = None
+    outputs: Any = None
+    pmac_ideal: Any = None
+    generator: torch.Generator | None = None
+
+    def evolve(self, **kw) -> "MacroState":
+        return dataclasses.replace(self, **kw)
+
+
+@runtime_checkable
+class Stage(Protocol):
+    """A pure transform over MacroState: ``stage(state, spec) -> state``."""
+
+    name: str
+
+    def __call__(self, state: MacroState, spec: MacroSpec) -> MacroState:
+        ...
+
+
+@dataclasses.dataclass(frozen=True)
+class DACStage:
+    """DA conversion: mask inactive rows, BL charge sharing per row."""
+
+    name: str = "dac"
+
+    def __call__(self, state: MacroState, spec: MacroSpec) -> MacroState:
+        x = state.x_codes.to(torch.int32)
+        active = torch.arange(spec.rows_per_group, device=x.device) \
+            < spec.rows_active
+        x_act = torch.where(active, x, torch.zeros_like(x))
+        v_rows = dac_lib.dac_voltage(x_act, spec, generator=state.generator)
+        return state.evolve(x_active=x_act, v_rows=v_rows)
+
+
+def _plane_abl(state: MacroState, spec: MacroSpec) -> torch.Tensor:
+    """P-8T multiply of every plane column + ABL accumulation: [n_out, B]."""
+    # [B, rows, n_out] -> column arrangement [rows, n_out, B].
+    w_cols = torch.movedim(state.w_planes, 0, -1).to(torch.float32)
+    v_cbl = dac_lib.multiply_bitcell(state.v_rows[:, None, None], w_cols,
+                                     spec)
+    return dac_lib.accumulate_abl(torch.movedim(v_cbl, 0, -1), spec)
+
+
+@dataclasses.dataclass(frozen=True)
+class AMUStage:
+    """P-8T multiplication + eACC ABL charge-sharing accumulation."""
+
+    name: str = "amu"
+
+    def __call__(self, state: MacroState, spec: MacroSpec) -> MacroState:
+        return state.evolve(v_abl=_plane_abl(state, spec))
+
+
+@dataclasses.dataclass(frozen=True)
+class ADCStage:
+    """Coarse-fine flash readout against the AMU_REF columns."""
+
+    name: str = "adc"
+
+    def __call__(self, state: MacroState, spec: MacroSpec) -> MacroState:
+        code = adc_lib.adc_read_voltage(
+            state.v_abl, spec, generator=state.generator,
+            coarse_bits=spec.adc_coarse_bits,
+        )
+        return state.evolve(adc_codes=code)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftAddStage:
+    """Digital recombination of the bit-plane codes into outputs."""
+
+    name: str = "shift_add"
+
+    def __call__(self, state: MacroState, spec: MacroSpec) -> MacroState:
+        pmac_hat = adc_lib.adc_dequant(state.adc_codes, spec)
+        signs = quant.plane_signs(spec.weight_bits,
+                                  pmac_hat.device).to(torch.float32)
+        outputs = torch.sum(pmac_hat * signs[None, :], dim=-1)
+        return state.evolve(outputs=outputs.to(torch.float32))
+
+
+def default_stages() -> tuple[Stage, ...]:
+    return (DACStage(), AMUStage(), ADCStage(), ShiftAddStage())
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalogPipeline:
+    """An ordered composition of analog stages.
+
+    ``run`` drives one macro cycle end to end; ``replace_stage`` swaps
+    one stage by name (a different ADC interface, an analog-adder
+    accumulation, ...) without touching the rest of the pipeline.
+    """
+
+    stages: tuple[Stage, ...] = dataclasses.field(
+        default_factory=default_stages
+    )
+
+    @property
+    def names(self) -> tuple[str, ...]:
+        return tuple(s.name for s in self.stages)
+
+    def stage(self, name: str) -> Stage:
+        for s in self.stages:
+            if s.name == name:
+                return s
+        raise KeyError(f"no stage '{name}' in pipeline {self.names}")
+
+    def replace_stage(self, name: str, stage: Stage) -> "AnalogPipeline":
+        if name not in self.names:
+            raise KeyError(f"no stage '{name}' in pipeline {self.names}")
+        return AnalogPipeline(
+            stages=tuple(stage if s.name == name else s for s in self.stages)
+        )
+
+    def run(
+        self,
+        x_codes: torch.Tensor,
+        w_codes: torch.Tensor,
+        spec: MacroSpec | CIMConfig,
+        *,
+        generator: torch.Generator | None = None,
+    ) -> MacroState:
+        """One macro cycle: returns the full post-pipeline MacroState."""
+        spec = as_spec(spec)
+        n = spec.rows_per_group
+        if tuple(x_codes.shape) != (n,):
+            raise ValueError(
+                f"x_codes must be [{n}], got {tuple(x_codes.shape)}")
+        planes = quant.bitslice_weights(w_codes, spec.weight_bits)
+        state = MacroState(x_codes=x_codes, w_planes=planes,
+                           generator=generator)
+        for s in self.stages:
+            state = s(state, spec)
+        if state.x_active is not None:
+            pmac_ideal = torch.einsum(
+                "r,bro->ob", state.x_active.to(torch.int64),
+                planes.to(torch.int64),
+            ).to(torch.int32)
+            state = state.evolve(pmac_ideal=pmac_ideal)
+        return state
+
+
+_DEFAULT_PIPELINE = AnalogPipeline()
+
+
+def default_pipeline() -> AnalogPipeline:
+    """The paper's macro as a pipeline (DAC -> AMU -> ADC -> shift-add)."""
+    return _DEFAULT_PIPELINE

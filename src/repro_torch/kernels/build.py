@@ -7,8 +7,9 @@ Every source under ``kernels/csrc`` is compiled on first use with
 
 into ``build/kernels/`` at the repository root (listed in
 ``.gitignore``), one shared library per source with a plain C entry
-point. The file name carries a hash of the source and the flags, so an
-edited source builds anew and a stale library is never loaded. All
+point. The file name carries a hash of the source, of every shared
+header (``csrc/*.cuh``) and of the flags, so an edited source or header
+builds anew and a stale library is never loaded. All
 sources build in parallel, one ``nvcc`` each, started together.
 
 Nothing here runs at import: this module imports on a machine without
@@ -68,6 +69,8 @@ def nvcc_path() -> str:
 
 def _lib_path(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 

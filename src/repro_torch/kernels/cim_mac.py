@@ -1,20 +1,32 @@
-"""The P-8T GPQ matmul: the hand-written Hopper kernel and its plain version.
+"""The GPQ matmuls of the three macro variants: hand-written Hopper
+kernels and their plain versions.
 
-``gpq_matmul`` computes what the reference's Pallas kernel
-``repro/kernels/cim_mac.py::gpq_matmul`` computes: for activation codes
+Each wrapper computes what the reference's Pallas kernel of the same
+name in ``repro/kernels/cim_mac.py`` computes, for activation codes
 x [M, K] and weight bytes w [K, N] (int8 signed codes or a plan's uint8
-packed-plane bytes),
+packed-plane bytes), with
 
   pMAC[m, g, b, n] = sum_{k in group g} x[m, k] * bit_b(w[k, n])
-  code             = clip(floor(pMAC / adc_step + 1/2 * nearest),
-                          0, adc_codes - 1)
-  out[m, n]        = sum_g sum_b s_b * 2^b * code * adc_step
 
-with s_b = -1 on the MSB plane. On a CUDA tensor it launches the kernel
-of ``csrc/gpq_matmul.cu`` (built on first use by ``kernels.build``) or
-raises; on a CPU tensor it runs :func:`gpq_matmul_plain`, the same
-function in plain PyTorch ops, which is also what the kernel is held to
-on the card. There is no fallback from one to the other.
+  gpq_matmul             (P-8T, B1) per-plane flash codes
+                         clip(floor(pMAC / adc_step + 1/2 * nearest),
+                         0, adc_codes - 1);
+                         out = sum_g sum_b s_b 2^b code * adc_step
+  adder_tree_gpq_matmul  (B2) one merged conversion per group:
+                         merged = sum_b s_b 2^b pMAC,
+                         code = clip(floor(merged / step + 1/2 * nearest),
+                         code_min, code_max) with variants.merged_quant;
+                         out = sum_g code * step
+  cell_adc_gpq_matmul    (B3) the adc_bits-step SAR search per pMAC
+                         against the levels t * adc_step (the same codes
+                         as B1); dequant and shift-add as B1
+
+with s_b = -1 on the MSB plane. On a CUDA tensor a wrapper launches its
+kernel from ``csrc/<name>.cu`` (built on first use by ``kernels.build``)
+or raises; on a CPU tensor it runs its ``*_plain`` version, the same
+function in plain PyTorch ops following the reference's float
+arithmetic, which is also what the kernel is held to on the card. There
+is no fallback from one to the other.
 
 ``LAUNCHES`` counts kernel launches by kernel name; it moves only where
 a kernel is launched.
@@ -24,12 +36,14 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import math
 
 import torch
 
 from repro_torch.core.params import CIMConfig
 from repro_torch.core.pipeline import MacroSpec
-from repro_torch.core.quant import true_divide
+from repro_torch.core.quant import plane_signs, true_divide
+from repro_torch.core.variants import merged_quant
 from repro_torch.kernels import build
 
 LAUNCHES: collections.Counter[str] = collections.Counter()
@@ -40,9 +54,10 @@ class DepthGuardError(ValueError):
 
 
 def _depth_guard(k: int, spec: MacroSpec) -> None:
-    """The reference's f32 exact-accumulation bound, kept as the contract.
+    """The reference's f32 exact-accumulation bound of the per-plane
+    kernels (B1, B3), kept as the contract.
 
-    The kernel accumulates in int32 and could go deeper; it raises where
+    The kernels accumulate in int32 and could go deeper; they raise where
     the reference raises, so both packages accept the same depths.
     """
     rows = spec.rows_active
@@ -52,6 +67,19 @@ def _depth_guard(k: int, spec: MacroSpec) -> None:
         raise DepthGuardError(
             f"K={k} too deep for exact f32 accumulation at this operating "
             "point; use core.matmul.cim_matmul_int"
+        )
+
+
+def _merged_depth_guard(k: int, spec: MacroSpec) -> None:
+    """The reference's bound on B2's f32 sum of merged codes."""
+    rows = spec.rows_active
+    mq = merged_quant(spec)
+    # bound: G * max(-code_min, code_max) < 2**24
+    g = (k + rows - 1) // rows
+    if g * max(abs(mq.code_min), mq.code_max) >= (1 << 24):
+        raise DepthGuardError(
+            f"K={k} too deep for exact f32 accumulation of merged codes; "
+            "use variants.adder_tree_matmul_int"
         )
 
 
@@ -66,22 +94,17 @@ def _unpacked_planes(w: torch.Tensor, weight_bits: int) -> torch.Tensor:
     return planes.to(torch.float32)
 
 
-def gpq_matmul_plain(
-    x_codes: torch.Tensor, w_codes: torch.Tensor, cfg: CIMConfig | MacroSpec
-) -> torch.Tensor:
-    """The GPQ matmul in plain PyTorch ops: the kernel's reference version.
+def _plain_pmac(x_codes, w_codes, spec: MacroSpec) -> torch.Tensor:
+    """[M, K] codes x [K, N] bytes -> [G, M, B, N] f32 group pMACs.
 
-    Follows the Pallas kernel's float arithmetic: f32 group pMACs, codes
-    from ``floor(pMAC / adc_step + half)`` in f32, dequantized codes
-    summed with the plane signs. One [G, M, B*N] contraction, so its
-    memory grows with G * M * B * N.
+    One [G, M, B*N] contraction, so its memory grows with G * M * B * N.
+    Group pMACs <= rows * act_max are exact in f32 (also under TF32,
+    whose 11-bit significand holds codes and 0/1 planes exactly).
     """
-    spec = MacroSpec.from_config(cfg)
     m, k = x_codes.shape
     if w_codes.shape[0] != k:
         raise ValueError(f"K mismatch: x {tuple(x_codes.shape)}, "
                          f"w {tuple(w_codes.shape)}")
-    _depth_guard(k, spec)
     n = w_codes.shape[1]
     rows = spec.rows_active
     b = spec.weight_bits
@@ -92,25 +115,86 @@ def gpq_matmul_plain(
     planes = _unpacked_planes(w_codes, b)  # [K, B, N]
     planes = torch.nn.functional.pad(planes, (0, 0, 0, 0, 0, kp - k))
     pe = planes.reshape(g, rows, b * n)  # [G, rows, B*N]
-    # Group pMACs <= rows * act_max are exact in f32 (also under TF32,
-    # whose 11-bit significand holds codes and 0/1 planes exactly).
-    pmac = torch.bmm(xg, pe)  # [G, M, B*N]
+    return torch.bmm(xg, pe).reshape(g, m, b, n)
+
+
+def _plane_weights(spec: MacroSpec, device) -> torch.Tensor:
+    """[B, 1] f32 shift-add weights s_b 2^b, broadcast over N."""
+    return plane_signs(spec.weight_bits, device).to(torch.float32)[:, None]
+
+
+def _plane_shift_add(code: torch.Tensor, spec: MacroSpec) -> torch.Tensor:
+    """[G, M, B, N] plane codes -> sum_g sum_b s_b 2^b code * adc_step."""
+    return (code * spec.adc_step * _plane_weights(spec, code.device)).sum(
+        dim=(0, 2))
+
+
+def gpq_matmul_plain(
+    x_codes: torch.Tensor, w_codes: torch.Tensor, cfg: CIMConfig | MacroSpec
+) -> torch.Tensor:
+    """B1 in plain PyTorch ops: the kernel's reference version.
+
+    Follows the Pallas kernel's float arithmetic: f32 group pMACs, codes
+    from ``floor(pMAC / adc_step + half)`` in f32, dequantized codes
+    summed with the plane signs.
+    """
+    spec = MacroSpec.from_config(cfg)
+    _depth_guard(x_codes.shape[1], spec)
+    pmac = _plain_pmac(x_codes, w_codes, spec)
     half = 0.5 if spec.adc_mode == "nearest" else 0.0
     code = torch.clamp(
-        torch.floor(true_divide(pmac, spec.adc_step) + half), 0, spec.adc_codes - 1
+        torch.floor(true_divide(pmac, spec.adc_step) + half), 0,
+        spec.adc_codes - 1,
     )
-    signs = [float(1 << i) for i in range(b)]
-    signs[-1] = -signs[-1]
-    sign_t = torch.tensor(signs, dtype=torch.float32, device=x_codes.device)
-    deq = code.reshape(g, m, b, n) * spec.adc_step
-    return (deq * sign_t[:, None]).sum(dim=(0, 2))
+    return _plane_shift_add(code, spec)
 
 
-def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor) -> None:
+def adder_tree_gpq_matmul_plain(
+    x_codes: torch.Tensor, w_codes: torch.Tensor, cfg: CIMConfig | MacroSpec
+) -> torch.Tensor:
+    """B2 in plain PyTorch ops, in the reference's plane formulation:
+    f32 group pMACs per plane, merged with the plane signs, one code per
+    (group, output) from ``floor(merged / step + half)`` in f32. (The
+    kernel computes the merged value as one signed dot product; the card
+    check holds the two to each other.)"""
+    spec = MacroSpec.from_config(cfg)
+    _merged_depth_guard(x_codes.shape[1], spec)
+    pmac = _plain_pmac(x_codes, w_codes, spec)
+    # [G, M, N], exact: |merged| <= 2**(B-1) * pmac_max < 2**24
+    merged = (pmac * _plane_weights(spec, pmac.device)).sum(dim=2)
+    mq = merged_quant(spec)
+    half = 0.5 if spec.adc_mode == "nearest" else 0.0
+    code = torch.clamp(
+        torch.floor(true_divide(merged, mq.step) + half), mq.code_min,
+        mq.code_max,
+    )
+    return code.sum(dim=0) * mq.step
+
+
+def cell_adc_gpq_matmul_plain(
+    x_codes: torch.Tensor, w_codes: torch.Tensor, cfg: CIMConfig | MacroSpec
+) -> torch.Tensor:
+    """B3 in plain PyTorch ops: B1's f32 group pMACs, then the reference's
+    unrolled SAR search, ``take = pMAC + half_step >= trial * adc_step``
+    (every term an exact f32 value)."""
+    spec = MacroSpec.from_config(cfg)
+    _depth_guard(x_codes.shape[1], spec)
+    pmac = _plain_pmac(x_codes, w_codes, spec)
+    thresh_off = 0.5 * spec.adc_step if spec.adc_mode == "nearest" else 0.0
+    code = torch.zeros(pmac.shape, dtype=torch.int32, device=pmac.device)
+    for bit in range(spec.adc_bits - 1, -1, -1):
+        trial = torch.bitwise_or(code, 1 << bit)
+        take = pmac + thresh_off >= trial.to(torch.float32) * spec.adc_step
+        code = torch.where(take, trial, code)
+    return _plane_shift_add(code.to(torch.float32), spec)
+
+
+def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor,
+                         spec: MacroSpec) -> None:
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(
-            f"gpq_matmul needs x and w on one CUDA device; got {x.device} "
-            f"and {w.device}"
+            f"the GPQ kernels need x and w on one CUDA device; got "
+            f"{x.device} and {w.device}"
         )
     if x.dtype != torch.int32:
         raise TypeError(f"x codes must be int32, got {x.dtype}")
@@ -127,19 +211,53 @@ def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor) -> None:
         raise ValueError("x and w must be contiguous (row-major)")
     if max(x.shape[0], x.shape[1], w.shape[1]) >= 1 << 31:
         raise ValueError("dimensions must fit in int32")
+    if spec.weight_bits > 8:
+        raise ValueError("the kernels take weight_bits <= 8 (one byte each)")
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    if not getattr(lib, "_gpq_bound", False):
+_BOUND: set[str] = set()
+
+
+def _launch(name: str, x: torch.Tensor, w: torch.Tensor, *args,
+            stream: int) -> torch.Tensor:
+    """Launch kernel ``name`` on [M, K] x [K, N] without synchronising.
+
+    ``args`` are the kernel's scalar arguments after (x, w, out, M, K,
+    N): Python ints pass as C ints, floats as C floats. Counts the launch.
+    """
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    lib = build.library(name)
+    fn = getattr(lib, f"{name}_launch")
+    if name not in _BOUND:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gpq_matmul_launch.argtypes = [
-            p, p, p, i, i, i, i, i, i, i, i, i, ctypes.c_float, p,
-        ]
-        lib.gpq_matmul_launch.restype = i
+        fn.argtypes = [p, p, p, i, i, i] + [
+            i if isinstance(a, int) else ctypes.c_float for a in args
+        ] + [p]
+        fn.restype = i
         lib.gpq_error_string.argtypes = [i]
         lib.gpq_error_string.restype = ctypes.c_char_p
-        lib._gpq_bound = True
-    return lib
+        _BOUND.add(name)
+    rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, *args,
+            stream)
+    if rc != 0:
+        msg = lib.gpq_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+    LAUNCHES[name] += 1
+    return out
+
+
+def _on_cpu(x: torch.Tensor, w: torch.Tensor) -> bool:
+    return x.device.type == "cpu" and w.device.type == "cpu"
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def gpq_matmul(
@@ -147,37 +265,99 @@ def gpq_matmul(
     w_codes: torch.Tensor,
     cfg: CIMConfig | MacroSpec,
 ) -> torch.Tensor:
-    """GPQ matmul [M, K] x [K, N] -> [M, N] float32.
+    """P-8T GPQ matmul (B1) [M, K] x [K, N] -> [M, N] float32.
 
     CPU tensors run :func:`gpq_matmul_plain`. CUDA tensors launch the
     hand-written kernel on the current stream, without synchronising;
     anything the kernel does not take (dtype, layout, device) raises.
-    Both raise ``ValueError`` past the reference's depth guard.
+    Both raise ``DepthGuardError`` past the reference's depth guard.
     """
     spec = MacroSpec.from_config(cfg)
-    if x_codes.device.type == "cpu" and w_codes.device.type == "cpu":
+    if _on_cpu(x_codes, w_codes):
         return gpq_matmul_plain(x_codes, w_codes, spec)
-    _check_cuda_operands(x_codes, w_codes)
-    m, k = x_codes.shape
-    n = w_codes.shape[1]
-    _depth_guard(k, spec)
-    if spec.weight_bits > 8:
-        raise ValueError("the kernel takes weight_bits <= 8 (one byte each)")
-    out = torch.empty((m, n), dtype=torch.float32, device=x_codes.device)
-    if m == 0 or n == 0:
-        return out
-    if k == 0:
-        return out.zero_()
-    lib = _bind(build.library("gpq_matmul"))
-    stream = torch.cuda.current_stream(x_codes.device).cuda_stream
-    rc = lib.gpq_matmul_launch(
-        x_codes.data_ptr(), w_codes.data_ptr(), out.data_ptr(),
-        m, k, n, spec.rows_active, spec.weight_bits, spec.adc_bits,
-        spec.threshold, spec.adc_codes, int(spec.adc_mode == "nearest"),
-        float(spec.adc_step), stream,
+    _check_cuda_operands(x_codes, w_codes, spec)
+    _depth_guard(x_codes.shape[1], spec)
+    return _launch(
+        "gpq_matmul", x_codes, w_codes, spec.rows_active, spec.weight_bits,
+        spec.adc_bits, spec.threshold, spec.adc_codes,
+        int(spec.adc_mode == "nearest"), float(spec.adc_step),
+        stream=_stream(x_codes),
     )
-    if rc != 0:
-        msg = lib.gpq_error_string(rc).decode()
-        raise RuntimeError(f"gpq_matmul launch failed: {msg} ({rc})")
-    LAUNCHES["gpq_matmul"] += 1
-    return out
+
+
+def _merged_window(mq) -> tuple[int, int, int]:
+    """(threshold, m_lo, m_hi) of B2's integer conversion.
+
+    ``threshold`` is the merged range's (step = threshold / 2^bits_eff).
+    Outside [m_lo, m_hi] the code saturates anyway (m_lo / step + 1/2 <=
+    code_min - 1/2, m_hi / step >= code_max + 1), so the kernel clamps
+    merged values to it, which bounds its numerator. Raises where that
+    numerator would not fit int32.
+    """
+    m_lo = math.floor((mq.code_min - 1) * mq.step)
+    m_hi = math.ceil((mq.code_max + 1) * mq.step)
+    threshold = round(mq.step * (1 << mq.bits_eff))
+    bound = max(-m_lo, m_hi) * (2 << mq.bits_eff) + 3 * threshold
+    if bound >= 1 << 31:
+        raise ValueError(
+            f"the adder-tree kernel's int32 conversion does not cover "
+            f"bits_eff={mq.bits_eff} at threshold {threshold}; use "
+            "variants.adder_tree_matmul_int"
+        )
+    return threshold, m_lo, m_hi
+
+
+def adder_tree_gpq_matmul(
+    x_codes: torch.Tensor,
+    w_codes: torch.Tensor,
+    cfg: CIMConfig | MacroSpec,
+) -> torch.Tensor:
+    """Adder-tree GPQ matmul (B2) [M, K] x [K, N] -> [M, N] float32.
+
+    CPU tensors run :func:`adder_tree_gpq_matmul_plain`; CUDA tensors
+    launch ``csrc/adder_tree_gpq_matmul.cu`` or raise. Both raise
+    ``DepthGuardError`` past the reference's merged-code depth guard.
+    """
+    spec = MacroSpec.from_config(cfg)
+    if _on_cpu(x_codes, w_codes):
+        return adder_tree_gpq_matmul_plain(x_codes, w_codes, spec)
+    _check_cuda_operands(x_codes, w_codes, spec)
+    _merged_depth_guard(x_codes.shape[1], spec)
+    mq = merged_quant(spec)
+    threshold, m_lo, m_hi = _merged_window(mq)
+    return _launch(
+        "adder_tree_gpq_matmul", x_codes, w_codes, spec.rows_active,
+        spec.weight_bits, mq.bits_eff, threshold, mq.code_min, mq.code_max, m_lo, m_hi,
+        int(spec.adc_mode == "nearest"), float(mq.step),
+        stream=_stream(x_codes),
+    )
+
+
+def cell_adc_gpq_matmul(
+    x_codes: torch.Tensor,
+    w_codes: torch.Tensor,
+    cfg: CIMConfig | MacroSpec,
+) -> torch.Tensor:
+    """Cell-embedded-ADC GPQ matmul (B3) [M, K] x [K, N] -> [M, N] f32.
+
+    CPU tensors run :func:`cell_adc_gpq_matmul_plain`; CUDA tensors
+    launch ``csrc/cell_adc_gpq_matmul.cu`` or raise. Both raise
+    ``DepthGuardError`` past the reference's depth guard (B1's).
+    """
+    spec = MacroSpec.from_config(cfg)
+    if _on_cpu(x_codes, w_codes):
+        return cell_adc_gpq_matmul_plain(x_codes, w_codes, spec)
+    _check_cuda_operands(x_codes, w_codes, spec)
+    _depth_guard(x_codes.shape[1], spec)
+    # The SAR compares pMAC * 2^(adc_bits+1) + threshold against
+    # 2 * trial * threshold in int32, with the pMAC clamped to the
+    # threshold.
+    if spec.threshold * (4 << spec.adc_bits) >= 1 << 31:
+        raise ValueError("the cell-ADC kernel's int32 compares do not "
+                         "cover this operating point")
+    return _launch(
+        "cell_adc_gpq_matmul", x_codes, w_codes, spec.rows_active,
+        spec.weight_bits, spec.adc_bits, spec.threshold,
+        int(spec.adc_mode == "nearest"), float(spec.adc_step),
+        stream=_stream(x_codes),
+    )

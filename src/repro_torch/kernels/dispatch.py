@@ -3,18 +3,27 @@
 A ``KernelKey(variant, backend, shape_cell, dtype) -> implementation``
 map that ``engine.execute``'s behavioral and cuda backends route through.
 
-Backends registered for the P-8T variant:
+Backends registered for each macro variant (``core.variants``):
 
-  "scan"    the group-loop transfer (core.matmul.cim_matmul_int). The
-            only backend that takes a noise request; peak memory is one
-            group tile, so it is the large-shape default.
-  "ref"     the vectorized formulation (kernels.ref.cim_matmul_ref).
-  "slots"   the spread-slot formulation (kernels.ref.cim_matmul_slots);
-            needs the plan's ``slots`` operand grouped at the executing
-            rows_active (it cannot be regrouped).
-  "cuda"    the hand-written Hopper kernel (kernels.cim_mac.gpq_matmul).
-            Noiseless. Consumes a plan's packed planes directly
+  "scan"    the group-loop transfer (p8t and cell-adc:
+            core.matmul.cim_matmul_int; adder-tree:
+            core.variants.adder_tree_matmul_int). The only backend that
+            takes a noise request; peak memory is one group tile, so it
+            is the large-shape default.
+  "ref"     the vectorized formulation (kernels.ref.cim_matmul_ref;
+            adder-tree: adder_tree_matmul_ref).
+  "slots"   the spread-slot formulation (kernels.ref.cim_matmul_slots;
+            adder-tree: adder_tree_matmul_slots); needs the plan's
+            ``slots`` operand grouped at the executing rows_active (it
+            cannot be regrouped).
+  "cuda"    the variant's hand-written Hopper kernel (kernels.cim_mac:
+            gpq_matmul B1, adder_tree_gpq_matmul B2, cell_adc_gpq_matmul
+            B3). Noiseless. Consumes a plan's packed planes directly
             (flatten-sliced to the [K, N] byte matrix).
+
+The cell-ADC's ideal transfer is the P-8T floor transfer, so its scan,
+ref and slots entries reuse the P-8T formulations; its kernel is the
+distinct SAR search (bit-identical codes).
 
 Resolution order when no backend is requested explicitly:
 
@@ -46,6 +55,7 @@ from typing import Any, Callable, Iterator
 import torch
 
 from repro_torch.core import matmul as matmul_lib
+from repro_torch.core import variants as variants_lib
 from repro_torch.core.params import CIMConfig
 from repro_torch.core.pipeline import MacroSpec, as_spec
 from repro_torch.kernels import ref as ref_lib
@@ -232,7 +242,7 @@ def dispatch(
       x_codes: [M, K] activation codes; w_codes: [K, N] signed weight
         codes (a plan's ``codes``, any integer dtype).
       spec: the operating point.
-      variant: macro family name (only "p8t" is registered in this slice).
+      variant: macro family name ("p8t", "adder-tree" or "cell-adc").
       backend: explicit implementation choice; None = heuristic.
       generator: hardware-noise request; routes an implicit pick to the
         scan transfer.
@@ -314,47 +324,64 @@ def dispatch(
 # ---------------------------------------------------------------------------
 
 
-def _scan_impl(x_codes, w_codes, spec, *, generator=None, planes=None):
-    return matmul_lib.cim_matmul_int(
-        x_codes, w_codes, spec, generator=generator, planes=planes
-    )
+def _ref_impl(ref_fn: KernelFn) -> KernelFn:
+    def run(x_codes, w_codes, spec, *, generator=None, planes=None):
+        del generator  # noiseless vectorized formulation
+        return ref_fn(x_codes, w_codes, spec, planes=planes)
+
+    return run
 
 
-def _ref_impl(x_codes, w_codes, spec, *, generator=None, planes=None):
-    del generator  # noiseless vectorized formulation
-    return ref_lib.cim_matmul_ref(x_codes, w_codes, spec, planes=planes)
+def _slots_impl(slots_fn: KernelFn) -> KernelFn:
+    def run(x_codes, w_codes, spec, *, generator=None, planes=None,
+            slots=None):
+        del w_codes, generator, planes  # weight side IS the slot operand
+        if slots is None:
+            raise ValueError(
+                "slots backend requires a plan's spread-slot operand "
+                "grouped at the executing rows_active "
+                "(engine.plan_weights keeps one under the behavioral "
+                "mode); none provided"
+            )
+        return slots_fn(x_codes, slots, spec)
+
+    return run
 
 
-def _slots_impl(x_codes, w_codes, spec, *, generator=None, planes=None,
-                slots=None):
-    del w_codes, generator, planes  # weight side IS the slot operand
-    if slots is None:
-        raise ValueError(
-            "slots backend requires a plan's spread-slot operand grouped "
-            "at the executing rows_active "
-            "(engine.plan_weights keeps one under the behavioral mode); "
-            "none provided"
-        )
-    return ref_lib.cim_matmul_slots(x_codes, slots, spec)
+def _cuda_impl(kernel_name: str) -> KernelFn:
+    def run(x_codes, w_codes, spec, *, generator=None, planes=None):
+        del generator  # noiseless
+        from repro_torch.kernels import ops  # loads the wrappers lazily
+
+        if planes is not None and planes.ndim == 3:
+            # Packed plan planes [G, rows, N] uint8: bit b of each byte
+            # is the weight's two's-complement bit b, exactly the masked
+            # code the kernels read. The flatten-slice recovers the
+            # [K, N] byte matrix at any grouping (the K-tail padding rows
+            # drop here).
+            k = x_codes.shape[1]
+            w_codes = planes.reshape(-1, planes.shape[-1])[:k]
+        return getattr(ops, kernel_name)(x_codes, w_codes, spec)
+
+    return run
 
 
-def _cuda_impl(x_codes, w_codes, spec, *, generator=None, planes=None):
-    del generator  # noiseless
-    from repro_torch.kernels import ops  # loads the kernel wrapper lazily
-
-    if planes is not None and planes.ndim == 3:
-        # Packed plan planes [G, rows, N] uint8: bit b of each byte is
-        # the weight's two's-complement bit b, exactly the masked code
-        # the kernel unpacks. The flatten-slice recovers the [K, N] byte
-        # matrix at any grouping (the K-tail padding rows drop here).
-        k = x_codes.shape[1]
-        w_codes = planes.reshape(-1, planes.shape[-1])[:k]
-    return ops.cim_matmul_kernel(x_codes, w_codes, spec)
-
-
-register_kernel(KernelKey("p8t", "scan"), _scan_impl,
-                supports_noise=True, supports_planes=True)
-register_kernel(KernelKey("p8t", "ref"), _ref_impl, supports_planes=True)
-register_kernel(KernelKey("p8t", "slots"), _slots_impl, supports_slots=True)
-register_kernel(KernelKey("p8t", "cuda"), _cuda_impl,
-                supports_planes=True, is_kernel=True)
+# The scan twins already take the implementation signature.
+_P8T_SCAN = matmul_lib.cim_matmul_int
+_P8T_REF = _ref_impl(ref_lib.cim_matmul_ref)
+_P8T_SLOTS = _slots_impl(ref_lib.cim_matmul_slots)
+for _variant, _scan, _ref, _slots, _kernel in (
+    ("p8t", _P8T_SCAN, _P8T_REF, _P8T_SLOTS, "cim_matmul_kernel"),
+    ("cell-adc", _P8T_SCAN, _P8T_REF, _P8T_SLOTS, "cell_adc_matmul_kernel"),
+    ("adder-tree", variants_lib.adder_tree_matmul_int,
+     _ref_impl(ref_lib.adder_tree_matmul_ref),
+     _slots_impl(ref_lib.adder_tree_matmul_slots),
+     "adder_tree_matmul_kernel"),
+):
+    register_kernel(KernelKey(_variant, "scan"), _scan,
+                    supports_noise=True, supports_planes=True)
+    register_kernel(KernelKey(_variant, "ref"), _ref, supports_planes=True)
+    register_kernel(KernelKey(_variant, "slots"), _slots,
+                    supports_slots=True)
+    register_kernel(KernelKey(_variant, "cuda"), _cuda_impl(_kernel),
+                    supports_planes=True, is_kernel=True)

@@ -1,12 +1,14 @@
 """Vectorized statements of the GPQ matmul (the "ref" and "slots" backends).
 
-Independent of core/matmul.py's group loop on purpose: this is the
-"textbook" statement of the macro semantics,
+Independent of the group loops of core/matmul.py and core/variants.py
+on purpose: this is the "textbook" statement of the macro semantics,
 
   pmac[m, g, b, n] = sum_{k in group g} x[m, k] * bit_b(w[k, n])
   code             = clip(floor(pmac / step), 0, 2**adc_bits - 1)
   y[m, n]          = sum_{g, b} sign_b * step * code
 
+and of the adder-tree's merged single-ADC transfer (one conversion of
+``merged = sum_b sign_b 2^b pmac_b`` per group and output), both
 noiseless by definition. The spread-slot form packs ``per_slot`` bit
 planes per f32 at an exact-integer stride, so one batched contraction
 yields every plane pMAC and the epilogue recovers them by
@@ -27,6 +29,7 @@ from repro_torch.core.quant import (
     slot_spec,
     true_divide,
 )
+from repro_torch.core.variants import merged_quant
 
 
 def _grouped_operands(x_codes, w_codes, cfg, planes):
@@ -78,6 +81,41 @@ def cim_matmul_ref(
     )  # [M, G, B, N]
     signs = _plane_signs_f32(cfg.weight_bits, x_codes.device)
     return (code * cfg.adc_step * signs[:, None]).sum(dim=(1, 2))
+
+
+def _merged_codes(merged: torch.Tensor, cfg) -> tuple[torch.Tensor, float]:
+    """Exact merged values -> clipped single-ADC codes (f32), and the step."""
+    mq = merged_quant(cfg)
+    half = 0.5 if getattr(cfg, "adc_mode", "floor") == "nearest" else 0.0
+    code = torch.clamp(
+        torch.floor(true_divide(merged, mq.step) + half),
+        mq.code_min, mq.code_max,
+    )
+    return code, mq.step
+
+
+def adder_tree_matmul_ref(
+    x_codes: torch.Tensor,
+    w_codes: torch.Tensor,
+    cfg: CIMConfig,
+    *,
+    planes: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Vectorized single-ADC merged transfer (adder-tree interface).
+
+    Merge the plane partial-MACs in the charge domain (MSB negative),
+    ONE conversion per (group, output), sum the dequantized group codes.
+    """
+    xg, wp = _grouped_operands(x_codes, w_codes, cfg, planes)
+    # Merged values are exact integers (|merged| <= 2**(B-1) * pmac_max)
+    # in float64 whatever the matmul precision setting.
+    pmac = torch.einsum(
+        "mgr,bgrn->mgbn", xg.to(torch.float64), wp.to(torch.float64)
+    )
+    signs = plane_signs(cfg.weight_bits, x_codes.device).to(torch.float64)
+    merged = torch.einsum("mgbn,b->mgn", pmac, signs).to(torch.float32)
+    code, step = _merged_codes(merged, cfg)
+    return torch.sum(code, dim=1) * step
 
 
 # ---------------------------------------------------------------------------
@@ -172,3 +210,25 @@ def cim_matmul_slots(
             _plane_sign(b, cfg.weight_bits) * float(cfg.adc_step)
         )
     return torch.sum(acc, dim=0)
+
+
+def adder_tree_matmul_slots(
+    x_codes: torch.Tensor,
+    slots: torch.Tensor,
+    cfg: CIMConfig,
+) -> torch.Tensor:
+    """Merged single-ADC transfer over spread-slot planes: recover the
+    per-plane pMACs, fold them through the charge-domain adder (MSB
+    negative), ONE conversion per (group, output). Bit-exact vs
+    :func:`adder_tree_matmul_ref`."""
+    # bound: G * max(-code_min, code_max) < 2**24
+    ss, n = _slot_geometry(slots, cfg)
+    g = slots.shape[0]
+    m = x_codes.shape[0]
+    c = _slot_dot(x_codes, slots, cfg).reshape(g, m, ss.n_slots, n)
+    merged = torch.zeros((g, m, n), dtype=torch.float32,
+                         device=x_codes.device)
+    for b, pmac in _iter_slot_planes(c, cfg, ss):
+        merged = merged + pmac * _plane_sign(b, cfg.weight_bits)
+    code, step = _merged_codes(merged, cfg)
+    return torch.sum(code, dim=0) * step

@@ -137,9 +137,13 @@ def _codes(m, k, n, seed=0):
 
 
 def test_only_p8t_backends_registered():
-    assert dispatch.backends_for("p8t") == ("scan", "ref", "slots", "cuda")
-    assert dispatch.has_kernel("p8t")
-    assert {k.variant for k in dispatch._TABLE} == {"p8t"}
+    # Slice 2 registers the two variant macros beside the P-8T one.
+    for variant in ("p8t", "adder-tree", "cell-adc"):
+        assert dispatch.backends_for(variant) == ("scan", "ref", "slots",
+                                                  "cuda")
+        assert dispatch.has_kernel(variant)
+    assert {k.variant for k in dispatch._TABLE} == {"p8t", "adder-tree",
+                                                   "cell-adc"}
     assert dispatch.shape_cell(1000, 144, 16) == (1024, 256, 16)
     assert dispatch.shape_cell(1 << 20, 3, 1) == (8192, 4, 1)
 

@@ -20,11 +20,14 @@ from repro.core.engine import _grouped_planes as j_grouped_planes
 from repro.core import quant as jquant
 from repro.core.params import CIMConfig as JConfig
 from repro.kernels import ref as jref
+from repro.kernels.cim_mac import adder_tree_gpq_matmul as j_adder_tree_gpq
+from repro.kernels.cim_mac import cell_adc_gpq_matmul as j_cell_adc_gpq
 from repro.kernels.cim_mac import gpq_matmul as j_gpq_matmul
 from repro_torch.core.engine import _grouped_planes as t_grouped_planes
 from repro_torch.core.params import CIMConfig as TConfig
+from repro_torch.core.variants import merged_quant, merged_transfer_int
 from repro_torch.core.quant import spread_slots
-from repro_torch.kernels import build, cim_mac, ops
+from repro_torch.kernels import build, cim_mac, dispatch, ops
 from repro_torch.kernels import ref as tref
 
 # rows {4, 8, 16} x ADC bits {3, 4, 5} at cutoff 0.5 (the certified
@@ -188,13 +191,126 @@ def test_plain_path_does_not_count_launches():
 
 def test_build_finds_source_and_reports_missing_nvcc(monkeypatch):
     srcs = build.sources()
-    assert set(srcs) == {"gpq_matmul"}
-    text = srcs["gpq_matmul"].read_text()
-    assert "repro/kernels/cim_mac.py::gpq_matmul" in text
-    assert 'extern "C"' in text and "gpq_matmul_launch" in text
+    assert set(srcs) == {"gpq_matmul", "adder_tree_gpq_matmul",
+                         "cell_adc_gpq_matmul"}
+    for name, src in srcs.items():
+        text = src.read_text()
+        assert f"repro/kernels/cim_mac.py::{name}" in text
+        assert 'extern "C"' in text and f"{name}_launch" in text
+        assert '#include "gpq_tile.cuh"' in text
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")
     monkeypatch.setattr(build.pathlib.Path, "is_file", lambda self: False)
     with pytest.raises(build.KernelBuildError, match="nvcc not found"):
         build.nvcc_path()
+
+
+def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
+    """An edit to csrc/*.cuh names a new library, so it is rebuilt."""
+    for f in build.CSRC.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    src = tmp_path / "adder_tree_gpq_matmul.cu"
+    before = build._lib_path(src)
+    assert build._lib_path(src) == before
+    header = tmp_path / "gpq_tile.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert build._lib_path(src) != before
+
+
+@pytest.mark.parametrize("mode", ["floor", "nearest"])
+@pytest.mark.parametrize("kw", GRID, ids=GRID_IDS)
+def test_plain_b2_b3_match_pallas_interpret(kw, mode):
+    """B2's and B3's plain versions (what the wrappers run on the CPU)
+    against the reference's Pallas kernels in interpret mode and its
+    eager oracles.
+
+    One known difference, on the reference side: inside jit, XLA turns
+    ``floor(merged / step + 1/2)`` into an FMA with f32(1/step), and
+    f32(1/12) rounds up, so at the step-12 point in nearest mode a
+    NEGATIVE merged value at an exact half step reads one code lower in
+    the Pallas kernel than in the reference's own eager oracle (ROADMAP
+    C). The port follows the eager oracle (true division) everywhere and
+    the Pallas kernel wherever the two reference forms agree.
+    """
+    jc, tc = JConfig(adc_mode=mode, **kw), TConfig(adc_mode=mode, **kw)
+    x, w = _codes(kw["rows_active"] * 10 + kw["adc_bits"], 37, 100, 21)
+    jx, jw = jnp.asarray(x), jnp.asarray(w)
+    tx = torch.from_numpy(x)
+    for jfn, jeager, tfn in (
+        (j_adder_tree_gpq, jref.adder_tree_matmul_ref,
+         cim_mac.adder_tree_gpq_matmul),
+        (j_cell_adc_gpq, jref.cim_matmul_ref, cim_mac.cell_adc_gpq_matmul),
+    ):
+        pallas = np.asarray(jfn(jx, jw, jc, bm=32, bn=32, bk=48,
+                                interpret=True))
+        eager = np.asarray(jeager(jx, jw, jc))
+        agree = pallas == eager
+        if not agree.all():
+            assert tfn is cim_mac.adder_tree_gpq_matmul
+            assert (kw["cutoff"], mode) == (0.25, "nearest")
+            assert (np.abs(pallas - eager)[~agree] == 12).all()
+        for tw in (torch.from_numpy(w), torch.from_numpy(w.view(np.uint8))):
+            got = tfn(tx, tw, tc)
+            assert got.shape == (37, 21) and got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), eager,
+                                          err_msg=tfn.__name__)
+            np.testing.assert_array_equal(got.numpy()[agree], pallas[agree],
+                                          err_msg=tfn.__name__)
+    np.testing.assert_array_equal(
+        cim_mac.cell_adc_gpq_matmul(tx, torch.from_numpy(w), tc).numpy(),
+        cim_mac.gpq_matmul(tx, torch.from_numpy(w), tc).numpy())
+
+
+def test_b2_b3_depth_guards_raise_at_the_reference_depth():
+    """B3 keeps B1's guard (4096 groups at the paper point); B2 raises
+    when G * 2048 reaches 2**24 (8192 groups), in both packages."""
+    jc = JConfig()
+    spec = TConfig().to_spec()
+    cim_mac._merged_depth_guard(8191 * 16, spec)
+    with pytest.raises(cim_mac.DepthGuardError, match="merged codes"):
+        cim_mac._merged_depth_guard(8192 * 16, spec)
+    cim_mac._depth_guard(4095 * 16, spec)
+    for groups, jfn, tfn in (
+        (8192, j_adder_tree_gpq, cim_mac.adder_tree_gpq_matmul),
+        (4096, j_cell_adc_gpq, cim_mac.cell_adc_gpq_matmul),
+    ):
+        k = groups * 16
+        with pytest.raises(ValueError, match="too deep"):
+            jfn(jnp.zeros((1, k), jnp.int32), jnp.zeros((k, 1), jnp.int8),
+                jc, interpret=True)
+        with pytest.raises(ValueError, match="too deep"):
+            tfn(torch.zeros((1, k), dtype=torch.int32),
+                torch.zeros((k, 1), dtype=torch.int8), TConfig())
+
+
+def test_b2_integer_window_bounds_every_grid_point():
+    """B2 clamps merged values to a window outside which its code
+    saturates; the window's numerator fits int32 on the whole grid, and
+    clamping changes no code."""
+    for kw in GRID:
+        for mode in ("floor", "nearest"):
+            tc = TConfig(adc_mode=mode, **kw)
+            mq = merged_quant(tc)
+            threshold, m_lo, m_hi = cim_mac._merged_window(mq)
+            assert threshold / (1 << mq.bits_eff) == mq.step
+            edge = torch.tensor([m_lo, m_lo - 1000, m_hi, m_hi + 1000],
+                                dtype=torch.float32)
+            codes = merged_transfer_int(edge, tc).tolist()
+            assert codes == [mq.code_min, mq.code_min, mq.code_max,
+                             mq.code_max]
+
+
+@pytest.mark.parametrize("variant,kernel", [
+    ("adder-tree", "adder_tree_gpq_matmul"),
+    ("cell-adc", "cell_adc_gpq_matmul")])
+def test_b2_b3_non_cpu_tensor_never_takes_the_plain_version(variant, kernel):
+    x = torch.empty((4, 16), dtype=torch.int32, device="meta")
+    w = torch.empty((16, 4), dtype=torch.int8, device="meta")
+    before = cim_mac.LAUNCHES[kernel]
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(cim_mac, kernel)(x, w, TConfig())
+    with pytest.raises(ValueError, match="CUDA"):
+        dispatch.dispatch(x, w, TConfig(), variant=variant, backend="cuda")
+    assert cim_mac.LAUNCHES[kernel] == before
