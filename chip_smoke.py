@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py --ablate   # phases 1-2, then the ablation builds
 
 Needs a CUDA device and the repository's ``src/repro_torch`` beside this
 file; it exits non-zero without either. Phases (each one fails the run):
@@ -11,16 +12,22 @@ file; it exits non-zero without either. Phases (each one fails the run):
               stay float32-exact).
   2. build    every CUDA kernel of the port from ``src/repro_torch/
               kernels/csrc`` (nvcc, sm_90a, one process per source, all
-              started together), with the build seconds, registers and
-              static shared memory per kernel.
+              started together), with the build seconds, registers,
+              static shared memory and spills per kernel entry; a spill
+              in B1 or B3 fails the run, and so does a B1 or B3 library
+              whose SASS (cuobjdump, where one is found) has no IMMA,
+              the tensor cores' integer MMA.
   3. kernel   each GPQ kernel (B1 gpq_matmul, B2 adder_tree_gpq_matmul,
               B3 cell_adc_gpq_matmul) against its plain PyTorch version
               on the card with ``torch.equal``: rows {4, 8, 16} x ADC
               bits {3, 4, 5} at cutoff 0.5 plus the step-12 point, floor
               and nearest, int8 codes and uint8 packed bytes, shapes that
-              are not tile multiples, and the ResNet's own 14 operands at
-              batch 256, on which B3 must also equal B1. Then each depth
-              guard must raise.
+              are not tile multiples, B1 and B3 at act_bits 8 with codes
+              over the whole byte range and at four points off the grid
+              (cutoff 0.3, 6 ADC bits, 6 and 12 rows) that take their
+              other paths, and the ResNet's own 14 operands at batch 256,
+              on which B3 must also equal B1. Then each depth guard must
+              raise.
   4. slice    slice 1's path: the committed ResNet checkpoint (widths
               16/32/64, two blocks per stage), planned under the paper
               policy, on 4 batches of 256 synthetic eval images under fp,
@@ -30,6 +37,10 @@ file; it exits non-zero without either. Phases (each one fails the run):
               twin on the card must give identical logits; the card's
               cim-kernel logits must agree with the port's CPU path on 8
               images.
+     profile  one cim-kernel forward at batch 256 under torch.profiler:
+              the top 10 device ops by total time and the device's busy
+              share of the window (reported, never failed: a trace
+              without device times says so).
   5. variants slice 2's path: for each saved calibration result in
               ``results/calibration/`` (p8t, adder-tree, cell-adc), load
               it, register it as the "analog" backend and run the same
@@ -40,12 +51,20 @@ file; it exits non-zero without either. Phases (each one fails the run):
               equal the p8t result's, and those slice 1's cim-kernel
               logits; the card against the CPU path on 8 images.
   6. timings  each of the ResNet's 14 kernel operands at batch 256, for
-              each kernel: kernel and plain-version times (CUDA events
-              around 10 back-to-back launches, median of 5 windows, after
-              warm-up) beside the bound
+              each kernel: the kernel's device time (10 launches in one
+              CUDA graph, CUDA events around 5 replays, median, after
+              warm-up), its time over 10 back-to-back wrapper calls (the
+              host's share included) and the plain
+              version's (CUDA events around 10 calls, median of 5
+              windows) beside the bound
               max(bytes / 3.35 TB/s, MAC ops / 1979 TOP/s int8);
               whole-forward images/s per mode.
   7. report   one JSON line listing every kernel of the port.
+
+``--ablate`` builds each entry of ABLATIONS (a source with preprocessor
+names set: B1's flash as a table, B1 without a conversion, B3's SAR with
+a run-time step count) and times it against the plain build on the 14
+ResNet operands, in turns, with B2 as the yardstick.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -53,9 +72,13 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import dataclasses
 import json
+import os
 import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -70,6 +93,18 @@ BATCH = 256
 N_BATCHES = 4
 MACRO_CONVS = 14  # per forward: stem and fc stay digital
 CALIBRATION_DIR = ROOT / "results" / "calibration"
+# The per-plane kernels, whose plane MACs run on the int8 tensor cores.
+PLANE_KERNELS = ("gpq_matmul", "cell_adc_gpq_matmul")
+# Builds of a source with preprocessor names set, timed against the plain
+# build in `--ablate` runs: (kernel, defines, what it shows).
+ABLATIONS = (
+    ("gpq_matmul", ("GPQ_FLASH_TABLE",),
+     "B1 with the flash as a shared-memory table (not clamp-then-mask)"),
+    ("gpq_matmul", ("GPQ_ADC_PLAIN_SUM",),
+     "B1 with no conversion: the pMAC summed as is (other results)"),
+    ("cell_adc_gpq_matmul", ("GPQ_SAR_RUNTIME",),
+     "B3 with the SAR's step count read at run time"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,6 +172,35 @@ def cuda_time_ms(fn, windows: int = 5, per_window: int = 10,
     return statistics.median(times)
 
 
+def graph_time_ms(fn, reps: int = 10, windows: int = 5) -> float:
+    """Device time per launch without the caller's host work: ``reps``
+    launches captured in one CUDA graph, replayed ``windows`` times under
+    CUDA events; the median window over ``reps``."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up (builds, binds) off the graph
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    times = []
+    for _ in range(windows):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def phase_device():
     import torch
 
@@ -161,6 +225,68 @@ def phase_device():
     return line
 
 
+def demangle(names: list[str]) -> list[str]:
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return names
+    r = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                       text=True, timeout=60)
+    out = r.stdout.splitlines()
+    return out if r.returncode == 0 and len(out) == len(names) else names
+
+
+def ptxas_entries(out: str) -> list[dict]:
+    """Per kernel entry in nvcc's -Xptxas -v output: its name, the
+    registers / shared-memory line and the spill bytes."""
+    entries = []
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            entries.append({"entry": line.split("'")[1], "used": "",
+                            "spill": (0, 0)})
+        elif entries and "spill stores" in line:
+            entries[-1]["spill"] = tuple(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif entries and "Used" in line and "registers" in line:
+            entries[-1]["used"] = line.split(":", 1)[1].strip()
+    for e, name in zip(entries, demangle([e["entry"] for e in entries])):
+        e["entry"] = name
+    return entries
+
+
+def find_cuobjdump() -> str | None:
+    cands = [pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+             / "bin" / "cuobjdump", pathlib.Path("/usr/local/cuda/bin/cuobjdump")]
+    found = shutil.which("cuobjdump")
+    if found:
+        cands.append(pathlib.Path(found))
+    try:
+        import triton
+
+        cands.append(pathlib.Path(triton.__file__).parent / "backends"
+                     / "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    return None
+
+
+SASS_OPS = ("IMMA", "LDGSTS", "LDS", "PRMT", "VIMNMX", "ISETP", "SEL",
+            "IMAD", "LOP3", "SHF")
+
+
+def sass_counts(tool: str, lib: pathlib.Path) -> collections.Counter:
+    """Opcode counts (before the first '.') of a library's SASS."""
+    r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=300, check=True)
+    ops = collections.Counter()
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                         r.stdout):
+        ops[m.group(1)] += 1
+    return ops
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -168,11 +294,31 @@ def phase_build():
     libs = build.build_all()
     secs = time.perf_counter() - t0
     log(f"[build] {len(libs)} kernel(s) in {secs:.1f} s")
+    spills = []
     for name, (s, out) in sorted(build.BUILD_LOG.items()):
         log(f"[build] {name}: nvcc {s:.1f} s")
-        for line in out.splitlines():
-            if "registers" in line or "Compiling entry" in line:
-                log(f"[build]   {line.strip()}")
+        for e in ptxas_entries(out):
+            log(f"[build]   {e['entry'][:110]}: {e['used']}; spill "
+                f"stores/loads {e['spill']} bytes")
+            if name in PLANE_KERNELS and any(e["spill"]):
+                spills.append((name, e["entry"], e["spill"]))
+    if spills:
+        raise AssertionError(f"register spills in the per-plane kernels: "
+                             f"{spills}")
+    log(f"[build] no register spills in {', '.join(PLANE_KERNELS)}")
+    tool = find_cuobjdump()
+    if tool is None:
+        log("[build] no cuobjdump found (toolkit or triton's bundled one): "
+            "the SASS is not inspected; the inline PTX mma.sync ... u8.u8 "
+            "in csrc/ptx.cuh is the evidence of tensor-core MMA")
+        return
+    for name, lib in sorted(libs.items()):
+        ops = sass_counts(tool, lib)
+        log(f"[build] {name} SASS ({tool}): {sum(ops.values())} "
+            f"instructions; " + ", ".join(f"{op} {ops[op]}"
+                                          for op in SASS_OPS))
+        if name in PLANE_KERNELS and ops["IMMA"] == 0:
+            raise AssertionError(f"{name}: no IMMA in its SASS")
 
 
 def resnet_operands(params, bn, images):
@@ -238,6 +384,37 @@ def phase_kernel(params, bn, images):
                                   device="cuda", dtype=torch.int8)
                 for kern in KERNELS:
                     check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
+    # act_bits = 8: codes over the whole byte range, the per-plane kernels'
+    # unsigned A operand at its edge (rows of 255 against all-ones weights
+    # reach the largest pMAC, 16 * 255).
+    for mode in ("floor", "nearest"):
+        cfg = CIMConfig(adc_mode=mode, act_bits=8)
+        for m, k, n in ((257, 144, 16), (130, 288, 40)):
+            x = torch.randint(0, 256, (m, k), generator=gen, device="cuda",
+                              dtype=torch.int32)
+            w = torch.randint(-128, 128, (k, n), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            x[:3] = 255
+            w[:16, :4] = -1
+            for kern in KERNELS:
+                if kern.name in PLANE_KERNELS:
+                    check(kern, x, w, cfg, f"act_bits 8 {mode} {(m, k, n)}")
+    # Off the grid, for the per-plane kernels' other paths: a step that is
+    # not a whole number of pMACs (B1's code table, B3's scaled search),
+    # 6 ADC bits (B3's run-time step count), 6 rows (x copied 4 bytes at a
+    # time) and 12 rows (a group short of 16 slots).
+    for kw in (dict(cutoff=0.3), dict(adc_bits=6), dict(rows_active=6),
+               dict(rows_active=12)):
+        for mode in ("floor", "nearest"):
+            cfg = CIMConfig(adc_mode=mode, **kw)
+            for m, k, n in ((300, 17, 70), (1000, 144, 16)):
+                x = torch.randint(0, 16, (m, k), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+                w = torch.randint(-128, 128, (k, n), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                for kern in KERNELS:
+                    if kern.name in PLANE_KERNELS:
+                        check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
     ops, spec = resnet_operands(params, bn, images)
     if len(ops) != MACRO_CONVS:
         raise AssertionError(f"{len(ops)} macro convs, want {MACRO_CONVS}")
@@ -372,6 +549,52 @@ def phase_slice(params, bn, batches):
     return launches, kern_logits
 
 
+def phase_profile(params, bn, images):
+    """One cim-kernel forward at batch 256 under torch.profiler: the top 10
+    device ops by total time and the device's busy share of the window.
+    A trace without device times is reported, not failed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import resnet as rcfg
+    from repro_torch.models import resnet
+
+    policy = rcfg.cim_policy(mode="cim-kernel")
+    cfg = dataclasses.replace(rcfg.RESNET_CFG, cim=policy)
+    planned = resnet.plan_params(params, policy)
+    with torch.no_grad():
+        resnet.forward(planned, bn, images, cfg)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            resnet.forward(planned, bn, images, cfg)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():  # device-side events: kernels, copies
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    if not rows:
+        log(f"[profile] no device time in the trace's key_averages() "
+            f"({window_ms:.2f} ms window): not attributed")
+        return
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"[profile] one cim-kernel forward at batch {len(images)}: "
+        f"{window_ms:.3f} ms window (host clock), device busy "
+        f"{busy:.3f} ms = {100 * busy / window_ms:.1f}% of it; top 10 "
+        f"device ops by total time:")
+    for ms, count, key in rows[:10]:
+        log(f"[profile]   {ms:9.4f} ms {100 * ms / busy:5.1f}% x{count:<4d} "
+            f"{key[:100]}")
+
+
 def phase_variants(params, bn, batches, slice1_logits):
     """Slice 2: each saved calibration result through the kernels."""
     import torch
@@ -440,7 +663,9 @@ def phase_timings(ops, spec):
         for name, x, w in ops:
             m, k = x.shape
             n = w.shape[1]
-            ms = cuda_time_ms(
+            ms = graph_time_ms(
+                lambda x=x, w=w, f=kern.wrapper(): f(x, w, spec))
+            calls_ms = cuda_time_ms(
                 lambda x=x, w=w, f=kern.wrapper(): f(x, w, spec))
             plain_ms = cuda_time_ms(
                 lambda x=x, w=w, f=kern.plain(): f(x, w, spec))
@@ -449,23 +674,69 @@ def phase_timings(ops, spec):
             macs = m * k * n * (spec.weight_bits if kern.per_plane else 1)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
-            per_op.append((ms, plain_ms, max(bytes_ms, ops_ms),
+            per_op.append((ms, plain_ms, max(bytes_ms, ops_ms), calls_ms,
                            bytes_ms >= ops_ms))
             log(f"[timing] {kern.name:22s} {name:12s} [{m}, {k}]x[{k}, {n}]: "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"kernel {ms:.4f} ms ({calls_ms:.4f} back-to-back wrapper "
+                f"calls), plain {plain_ms:.4f} ms, bound "
                 f"{max(bytes_ms, ops_ms):.4f} ms "
                 f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
                 f"{nbytes / 1e6:.1f} MB, {2 * macs / 1e9:.2f} G int8 "
                 f"ops)")
-        tot = [sum(r[i] for r in per_op) for i in range(3)]
-        bound_by = ("bytes" if sum(r[3] for r in per_op) * 2 >= len(per_op)
+        tot = [sum(r[i] for r in per_op) for i in range(4)]
+        bound_by = ("bytes" if sum(r[4] for r in per_op) * 2 >= len(per_op)
                     else "operations")
         log(f"[timing] {kern.name}: one forward's {len(per_op)} launches: "
-            f"kernel {tot[0]:.4f} ms, plain {tot[1]:.4f} ms, bound "
+            f"kernel {tot[0]:.4f} ms ({tot[3]:.4f} back-to-back wrapper "
+            f"calls), plain {tot[1]:.4f} ms, bound "
             f"{tot[2]:.4f} ms ({bound_by}); library: none (no single "
             f"PyTorch call computes a GPQ transfer)")
-        rows[kern.name] = (*tot, bound_by)
+        rows[kern.name] = (*tot[:3], bound_by)
     return rows
+
+
+def phase_ablate(ops, spec):
+    """Each build of ABLATIONS against the plain build of its source on
+    the 14 ResNet operands, in turns (plain, variant, variant, plain), and
+    B2 beside them as the yardstick across calls: ms per forward."""
+    import ctypes
+
+    from repro_torch.kernels import build, cim_mac
+
+    with concurrent.futures.ThreadPoolExecutor(len(ABLATIONS)) as pool:
+        paths = list(pool.map(
+            lambda a: build.build_all([a[0]], defines=a[1])[a[0]],
+            ABLATIONS))
+    for key, (secs, _) in sorted(build.BUILD_LOG.items()):
+        log(f"[ablate] built {key}: nvcc {secs:.1f} s")
+
+    def use(name, lib):
+        build._LIBS[name] = lib
+        cim_mac._BOUND.discard(name)
+
+    def forward_ms(name):
+        fn = getattr(cim_mac, name)
+        per_op = [graph_time_ms(lambda x=x, w=w: fn(x, w, spec))
+                  for _, x, w in ops]
+        return sum(per_op), per_op[0]
+
+    log(f"[ablate] {KERNELS[1].name} (control): "
+        f"{forward_ms(KERNELS[1].name)[0]:.4f} ms per forward")
+    for (name, defines, what), path in zip(ABLATIONS, paths):
+        plain_lib = build.library(name)
+        variant_lib = ctypes.CDLL(str(path))
+        times = {"plain": [], "variant": []}
+        for which in ("plain", "variant", "variant", "plain"):
+            use(name, plain_lib if which == "plain" else variant_lib)
+            times[which].append(forward_ms(name))
+        use(name, plain_lib)
+        p = [t[0] for t in times["plain"]]
+        v = [t[0] for t in times["variant"]]
+        log(f"[ablate] {name} -D{' -D'.join(defines)} ({what}): "
+            f"{v[0]:.4f}, {v[1]:.4f} ms per forward against the plain "
+            f"build's {p[0]:.4f}, {p[1]:.4f}; stage-0 launch "
+            f"{times['variant'][0][1]:.4f} against "
+            f"{times['plain'][0][1]:.4f} ms")
 
 
 def main() -> int:
@@ -484,8 +755,14 @@ def main() -> int:
         batches.append((torch.from_numpy(b["image"]).cuda(),
                         torch.from_numpy(b["label"]).long().cuda()))
 
+    if "--ablate" in sys.argv[1:]:
+        ops, spec = resnet_operands(params, bn, batches[0][0])
+        phase_ablate(ops, spec)
+        log(card)
+        return 0
     ops, spec, max_err = phase_kernel(params, bn, batches[0][0])
     _, slice1_logits = phase_slice(params, bn, batches)
+    phase_profile(params, bn, batches[0][0])
     launches = phase_variants(params, bn, batches, slice1_logits)
     timings = phase_timings(ops, spec)
 

@@ -129,6 +129,29 @@ def _plane_shift_add(code: torch.Tensor, spec: MacroSpec) -> torch.Tensor:
         dim=(0, 2))
 
 
+def _flash_codes(pmac: torch.Tensor, spec: MacroSpec) -> torch.Tensor:
+    """B1's codes of f32 pMACs: ``floor(pMAC / adc_step + half)`` in f32,
+    clipped to [0, adc_codes - 1]."""
+    half = 0.5 if spec.adc_mode == "nearest" else 0.0
+    return torch.clamp(
+        torch.floor(true_divide(pmac, spec.adc_step) + half), 0,
+        spec.adc_codes - 1,
+    )
+
+
+def _sar_codes(pmac: torch.Tensor, spec: MacroSpec) -> torch.Tensor:
+    """B3's int32 codes of f32 pMACs: the reference's unrolled SAR search,
+    ``take = pMAC + half_step >= trial * adc_step`` (every term an exact
+    f32 value)."""
+    thresh_off = 0.5 * spec.adc_step if spec.adc_mode == "nearest" else 0.0
+    code = torch.zeros(pmac.shape, dtype=torch.int32, device=pmac.device)
+    for bit in range(spec.adc_bits - 1, -1, -1):
+        trial = torch.bitwise_or(code, 1 << bit)
+        take = pmac + thresh_off >= trial.to(torch.float32) * spec.adc_step
+        code = torch.where(take, trial, code)
+    return code
+
+
 def gpq_matmul_plain(
     x_codes: torch.Tensor, w_codes: torch.Tensor, cfg: CIMConfig | MacroSpec
 ) -> torch.Tensor:
@@ -141,12 +164,7 @@ def gpq_matmul_plain(
     spec = MacroSpec.from_config(cfg)
     _depth_guard(x_codes.shape[1], spec)
     pmac = _plain_pmac(x_codes, w_codes, spec)
-    half = 0.5 if spec.adc_mode == "nearest" else 0.0
-    code = torch.clamp(
-        torch.floor(true_divide(pmac, spec.adc_step) + half), 0,
-        spec.adc_codes - 1,
-    )
-    return _plane_shift_add(code, spec)
+    return _plane_shift_add(_flash_codes(pmac, spec), spec)
 
 
 def adder_tree_gpq_matmul_plain(
@@ -175,18 +193,11 @@ def cell_adc_gpq_matmul_plain(
     x_codes: torch.Tensor, w_codes: torch.Tensor, cfg: CIMConfig | MacroSpec
 ) -> torch.Tensor:
     """B3 in plain PyTorch ops: B1's f32 group pMACs, then the reference's
-    unrolled SAR search, ``take = pMAC + half_step >= trial * adc_step``
-    (every term an exact f32 value)."""
+    unrolled SAR search (:func:`_sar_codes`)."""
     spec = MacroSpec.from_config(cfg)
     _depth_guard(x_codes.shape[1], spec)
     pmac = _plain_pmac(x_codes, w_codes, spec)
-    thresh_off = 0.5 * spec.adc_step if spec.adc_mode == "nearest" else 0.0
-    code = torch.zeros(pmac.shape, dtype=torch.int32, device=pmac.device)
-    for bit in range(spec.adc_bits - 1, -1, -1):
-        trial = torch.bitwise_or(code, 1 << bit)
-        take = pmac + thresh_off >= trial.to(torch.float32) * spec.adc_step
-        code = torch.where(take, trial, code)
-    return _plane_shift_add(code.to(torch.float32), spec)
+    return _plane_shift_add(_sar_codes(pmac, spec).to(torch.float32), spec)
 
 
 def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor,
@@ -213,6 +224,21 @@ def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("dimensions must fit in int32")
     if spec.weight_bits > 8:
         raise ValueError("the kernels take weight_bits <= 8 (one byte each)")
+
+
+def _check_plane_spec(spec: MacroSpec) -> None:
+    """What the per-plane tensor-core kernels (B1, B3) take: activation
+    codes as unsigned bytes, a row group in at most two k16 steps."""
+    if spec.act_bits > 8:
+        raise ValueError(
+            f"the per-plane kernels take act_bits <= 8 (codes in [0, 256) "
+            f"as unsigned bytes); got act_bits={spec.act_bits}"
+        )
+    if spec.rows_active > 32:
+        raise ValueError(
+            f"the per-plane kernels take rows_active <= 32; got "
+            f"{spec.rows_active}"
+        )
 
 
 _BOUND: set[str] = set()
@@ -267,14 +293,19 @@ def gpq_matmul(
 ) -> torch.Tensor:
     """P-8T GPQ matmul (B1) [M, K] x [K, N] -> [M, N] float32.
 
-    CPU tensors run :func:`gpq_matmul_plain`. CUDA tensors launch the
-    hand-written kernel on the current stream, without synchronising;
-    anything the kernel does not take (dtype, layout, device) raises.
-    Both raise ``DepthGuardError`` past the reference's depth guard.
+    ``x_codes`` are activation codes in ``[0, 2**act_bits)``, as
+    ``quant.quantize_acts`` makes them. CPU tensors run
+    :func:`gpq_matmul_plain`. CUDA tensors launch the hand-written kernel
+    on the current stream, without synchronising; it reads each code as an
+    unsigned byte, so it takes ``act_bits <= 8`` (and at most 32 active
+    rows), and anything else it does not take (dtype, layout, device)
+    raises. Both raise ``DepthGuardError`` past the reference's depth
+    guard.
     """
     spec = MacroSpec.from_config(cfg)
     if _on_cpu(x_codes, w_codes):
         return gpq_matmul_plain(x_codes, w_codes, spec)
+    _check_plane_spec(spec)
     _check_cuda_operands(x_codes, w_codes, spec)
     _depth_guard(x_codes.shape[1], spec)
     return _launch(
@@ -340,13 +371,16 @@ def cell_adc_gpq_matmul(
 ) -> torch.Tensor:
     """Cell-embedded-ADC GPQ matmul (B3) [M, K] x [K, N] -> [M, N] f32.
 
-    CPU tensors run :func:`cell_adc_gpq_matmul_plain`; CUDA tensors
-    launch ``csrc/cell_adc_gpq_matmul.cu`` or raise. Both raise
-    ``DepthGuardError`` past the reference's depth guard (B1's).
+    ``x_codes`` are activation codes in ``[0, 2**act_bits)``. CPU tensors
+    run :func:`cell_adc_gpq_matmul_plain`; CUDA tensors launch
+    ``csrc/cell_adc_gpq_matmul.cu`` (``act_bits <= 8``, at most 32 active
+    rows, as B1) or raise. Both raise ``DepthGuardError`` past the
+    reference's depth guard (B1's).
     """
     spec = MacroSpec.from_config(cfg)
     if _on_cpu(x_codes, w_codes):
         return cell_adc_gpq_matmul_plain(x_codes, w_codes, spec)
+    _check_plane_spec(spec)
     _check_cuda_operands(x_codes, w_codes, spec)
     _depth_guard(x_codes.shape[1], spec)
     # The SAR compares pMAC * 2^(adc_bits+1) + threshold against

@@ -1,11 +1,12 @@
-// Shared tiling of the GPQ matmul kernels (gpq_matmul.cu,
-// adder_tree_gpq_matmul.cu, cell_adc_gpq_matmul.cu), for sm_90a.
+// Shared pieces of the GPQ matmul kernels, for sm_90a: the shared-memory
+// tiling of the adder-tree kernel (adder_tree_gpq_matmul.cu), the weight
+// masking and the launch checks of all three. The per-plane kernels of
+// B1 and B3 are in plane_mma.cuh.
 //
-// All three compute, for x [M, K] int32 activation codes and w [K, N]
-// weight bytes (int8 two's-complement codes or uint8 packed-plane bytes;
-// the low weight_bits of either are the code bits), one result per
-// (16-row group, output) or per (group, plane, output), then an ADC code
-// of it, summed over groups. They share this structure:
+// The adder-tree tiling computes, for x [M, K] int32 activation codes and
+// w [K, N] weight bytes (int8 two's-complement codes or uint8 packed-plane
+// bytes; the low weight_bits of either are the code bits), one result per
+// (16-row group, output), then an ADC code of it, summed over groups:
 //
 //   * one block owns an output tile [BM, BN] as wide as the layer (N <= 64
 //     on the ResNet path; BN in {16, 32, 64} follows N), so every x
@@ -108,108 +109,6 @@ __device__ __forceinline__ void store_tile(const int (&acc)[kTM][kTN],
             static_cast<float>(acc[i][j]) * scale;
     }
   }
-}
-
-// The per-plane GPQ kernel of B1 and B3: for each row group g and plane b,
-// pMAC = sum_k x * bit_b(w); code = adc.code(table, pMAC); the tile sum
-// is sum_g sum_b s_b 2^b code (s_b = -1 on the MSB plane). `Adc` is the
-// conversion: B1's flash (a pMAC -> code table in shared memory) or B3's
-// successive-approximation search.
-template <int BN, class Adc>
-__global__ void __launch_bounds__(kThreads)
-plane_gpq_kernel(const int32_t* __restrict__ x, const uint8_t* __restrict__ w,
-                 float* __restrict__ out, int M, int K, int N, int rows,
-                 int kc, int weight_bits, Adc adc, float scale) {
-  constexpr int TX = Tile<BN>::TX;
-  constexpr int TY = Tile<BN>::TY;
-  constexpr int BM = Tile<BN>::BM;
-  __shared__ int32_t xs[kXTileElems + BM];
-  __shared__ __align__(16) uint8_t ws[Tile<BN>::KC_MAX * BN];
-  __shared__ typename Adc::Table table;
-
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int xstride = kc + 1;
-  adc.fill(table);
-
-  int acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    stage_chunk<BN, false>(xs, ws, x, w, M, K, N, m0, n0, k0, kc,
-                           weight_bits);
-    __syncthreads();
-    const int groups = (min(kc, K - k0) + rows - 1) / rows;
-    for (int g = 0; g < groups; ++g) {
-      for (int b = 0; b < weight_bits; ++b) {
-        int pm[kTM][kTN];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) pm[i][j] = 0;
-        for (int r = 0; r < rows; ++r) {
-          const int kk = g * rows + r;
-          int xv[kTM];
-#pragma unroll
-          for (int i = 0; i < kTM; ++i) xv[i] = xs[(ty + i * TY) * xstride + kk];
-          const uint32_t wq =
-              *reinterpret_cast<const uint32_t*>(&ws[kk * BN + tx * kTN]);
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) {
-            const int bit = static_cast<int>((wq >> (8 * j + b)) & 1u);
-#pragma unroll
-            for (int i = 0; i < kTM; ++i) pm[i][j] += xv[i] * bit;
-          }
-        }
-        const bool msb = b == weight_bits - 1;
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) {
-            const int c = adc.code(table, pm[i][j]);
-            acc[i][j] += msb ? -(c << b) : (c << b);
-          }
-      }
-    }
-    __syncthreads();
-  }
-  store_tile<BN>(acc, out, M, N, m0, n0, scale);
-}
-
-template <int BN, class Adc>
-cudaError_t launch_plane_bn(const void* x, const void* w, void* out, int M,
-                            int K, int N, int rows, int weight_bits,
-                            const Adc& adc, float scale,
-                            cudaStream_t stream) {
-  const int kc = chunk_rows<BN>(rows);
-  if (kc < rows) return cudaErrorInvalidValue;
-  const dim3 grid((M + Tile<BN>::BM - 1) / Tile<BN>::BM, (N + BN - 1) / BN);
-  plane_gpq_kernel<BN, Adc><<<grid, kThreads, 0, stream>>>(
-      static_cast<const int32_t*>(x), static_cast<const uint8_t*>(w),
-      static_cast<float*>(out), M, K, N, rows, kc, weight_bits, adc, scale);
-  return cudaGetLastError();
-}
-
-// Launch plane_gpq_kernel at the BN that covers N (up to 64; wider
-// layers take several column tiles).
-template <class Adc>
-cudaError_t launch_plane_gpq(const void* x, const void* w, void* out, int M,
-                             int K, int N, int rows, int weight_bits,
-                             const Adc& adc, float scale,
-                             cudaStream_t stream) {
-  if (N <= 16)
-    return launch_plane_bn<16>(x, w, out, M, K, N, rows, weight_bits, adc,
-                               scale, stream);
-  if (N <= 32)
-    return launch_plane_bn<32>(x, w, out, M, K, N, rows, weight_bits, adc,
-                               scale, stream);
-  return launch_plane_bn<64>(x, w, out, M, K, N, rows, weight_bits, adc,
-                             scale, stream);
 }
 
 // Arguments every launch entry point validates the same way.

@@ -9,6 +9,8 @@ multiple of the ADC step in float32.
 """
 
 import functools
+import json
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -313,4 +315,262 @@ def test_b2_b3_non_cpu_tensor_never_takes_the_plain_version(variant, kernel):
         getattr(cim_mac, kernel)(x, w, TConfig())
     with pytest.raises(ValueError, match="CUDA"):
         dispatch.dispatch(x, w, TConfig(), variant=variant, backend="cuda")
+    assert cim_mac.LAUNCHES[kernel] == before
+
+
+# -- Mirrors of the per-plane kernels' integer arithmetic (csrc/
+# plane_mma.cuh, gpq_matmul.cu, cell_adc_gpq_matmul.cu), held to the plain
+# versions' codes: the card cannot run here, these operations can.
+
+CERT = (pathlib.Path(__file__).resolve().parent.parent
+        / "results" / "analysis" / "range-certificate.json")
+
+
+def _certificate_geometries():
+    out = []
+    for g in json.loads(CERT.read_text())["geometries"].values():
+        out.append(pytest.param(dict(
+            rows_per_group=g["rows_per_group"], rows_active=g["rows_active"],
+            act_bits=g["act_bits"], weight_bits=g["weight_bits"],
+            adc_bits=g["adc_bits"], cutoff=g["cutoff"],
+            adc_coarse_bits=g["coarse_bits"]), id=g["ident"]))
+    out.append(pytest.param(dict(rows_active=16, cutoff=0.25, adc_bits=4),
+                            id="step12/r16/cut0.25/adc4"))
+    return out
+
+
+CERT_GEOMETRIES = _certificate_geometries()
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+U32 = (1 << 32) - 1
+
+
+def _table_code(p, adc_bits, threshold, code_max, nearest):
+    """FlashTable's entry for pMAC p (gpq_matmul.cu adc_code): 0 at or
+    below 0, the top code at or above the threshold, else the integer
+    floor of the flash's quotient."""
+    if p <= 0:
+        return 0
+    if p >= threshold:
+        return code_max
+    c = (((2 * p) << adc_bits) + threshold) // (2 * threshold) if nearest \
+        else (p << adc_bits) // threshold
+    return min(c, code_max)
+
+
+def _shift2_constants(spec, nearest):
+    """gpq_matmul.cu flash_shift2: (s, h, top) where the kernel converts
+    two pMACs per register (a power-of-two step of s pMACs, a group's sum
+    within a signed half), else None (it reads its table)."""
+    if spec.threshold % (1 << spec.adc_bits) or 255 * spec.threshold >= 1 << 15:
+        return None
+    s = spec.threshold >> spec.adc_bits
+    if s & (s - 1):
+        return None
+    return s, s // 2 if nearest else 0, spec.adc_codes * s - 1
+
+
+def _s16(u):
+    return u - 0x10000 if u & 0x8000 else u
+
+
+def _per_half(fn, *regs):
+    """A Hopper DPX 16x2 instruction: fn on each 16-bit half of the
+    registers (signed or unsigned as fn reads them), halves kept apart."""
+    out = 0
+    for i in (0, 1):
+        out |= (fn(*[(r >> 16 * i) & 0xFFFF for r in regs]) & 0xFFFF) << 16 * i
+    return out
+
+
+def _pair(lo, hi):
+    """__byte_perm(lo, hi, 0x5410): two pMACs in the halves of one
+    register."""
+    return (lo & 0xFFFF) | (hi & 0xFFFF) << 16
+
+
+def _halves(v):
+    return v & 0xFFFF, (v >> 16) & 0xFFFF
+
+
+def _flash_shift2(p2, s, h, top):
+    """FlashShift2::code2: __viaddmin_s16x2_relu(p2, h, top) per half,
+    then the low log2(s) bits of each half cleared: code * s."""
+    q2 = _per_half(lambda a, b, c: max(min(_s16((a + b) & 0xFFFF), _s16(c)),
+                                       0), p2, h * 0x10001, top * 0x10001)
+    return q2 & ((0xFFFF & ~(s - 1)) * 0x10001)
+
+
+def _sar2(p2, adc_bits, s, nearest):
+    """SarSearch<kBits>::code2: q = __viaddmax_s16x2(p2, h, 0), then from
+    the MSB down r = __viaddmin_u16x2(r, -(s 2^bit), r) (keep when r
+    covers the level), per half; returns q - r, code * s in each half."""
+    h = s // 2 if nearest else 0
+    q2 = _per_half(lambda a, b, c: max(_s16((a + b) & 0xFFFF), _s16(c)),
+                   p2, h * 0x10001, 0)
+    r2 = q2
+    for bit in range(adc_bits - 1, -1, -1):
+        neg = ((-(s << bit)) & 0xFFFF) * 0x10001
+        r2 = _per_half(lambda a, b, c: min((a + b) & 0xFFFF, c), r2, neg, r2)
+    return (q2 - r2) & U32
+
+
+def _sar_residual(q, levels):
+    """SarSearch<0>'s steps: from the MSB down, r = min(r - level, r) in
+    unsigned 32-bit arithmetic (keep when r covers the level); returns
+    q - r, the kept levels' sum."""
+    r = q
+    for level in reversed(levels):
+        r = min((r - level) & U32, r)
+    return q - r
+
+
+def _sar_scaled(p, adc_bits, threshold, nearest):
+    """SarSearch<0>::code: q = max(p 2^(adc_bits+1) + nearest t, 0),
+    levels 2t 2^bit, code = umulhi(q - r, ceil(2^32 / 2t))."""
+    scaled = p * (2 << adc_bits)
+    assert INT32_MIN <= scaled <= INT32_MAX
+    q = max(scaled + nearest * threshold, 0)
+    kept = _sar_residual(q, [2 * threshold << bit for bit in range(adc_bits)])
+    return (kept * -(-(1 << 32) // (2 * threshold))) >> 32
+
+
+def _packs(spec):
+    """Whether the kernels convert two pMACs per register here: a whole
+    step and a group's shift-add sum within a signed half."""
+    return (spec.threshold % (1 << spec.adc_bits) == 0
+            and 255 * spec.threshold < 1 << 15)
+
+
+def _all_pmacs(spec):
+    return torch.arange(-1, spec.pmac_max + 1, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("mode", ["floor", "nearest"])
+@pytest.mark.parametrize("kw", CERT_GEOMETRIES)
+def test_b1_flash_codes_equal_plain_codes(kw, mode):
+    """B1's conversion gives the plain version's code for every pMAC from
+    -1 to pmac_max: at the 27 certified geometries (power-of-two steps)
+    two per register by clamp-then-mask (FlashShift2, each pMAC paired
+    with another), at the step-12 point from the shared-memory table."""
+    spec = TConfig(adc_mode=mode, **kw).to_spec()
+    nearest = mode == "nearest"
+    pmacs = [int(p) for p in _all_pmacs(spec)]
+    want = cim_mac._flash_codes(_all_pmacs(spec), spec).to(torch.int64)
+    want = want.tolist()
+    consts = _shift2_constants(spec, nearest)
+    assert (consts is None) == (spec.adc_step == 12)
+    if consts is None:
+        got = [_table_code(p, spec.adc_bits, spec.threshold,
+                           spec.adc_codes - 1, nearest) for p in pmacs]
+        assert got == want
+        return
+    s = consts[0]
+    assert s == spec.adc_step
+    for p, other in zip(pmacs, reversed(pmacs)):
+        lo, hi = _halves(_flash_shift2(_pair(p, other), *consts))
+        assert (lo, hi) == (want[p + 1] * s, want[other + 1] * s)
+
+
+@pytest.mark.parametrize("mode", ["floor", "nearest"])
+@pytest.mark.parametrize("kw", CERT_GEOMETRIES)
+def test_b3_integer_sar_codes_equal_plain_codes(kw, mode):
+    """B3's residual SAR gives the plain SAR's code (and B1's) for every
+    pMAC from -1 to pmac_max: two per register (code * s in each half,
+    the launch scaling by adc_step / s = 1) where a group's sum fits a
+    half, and in its scaled run-time form everywhere."""
+    spec = TConfig(adc_mode=mode, **kw).to_spec()
+    nearest = int(mode == "nearest")
+    pmacs = [int(p) for p in _all_pmacs(spec)]
+    want = cim_mac._sar_codes(_all_pmacs(spec), spec).tolist()
+    assert want == cim_mac._flash_codes(_all_pmacs(spec),
+                                        spec).to(torch.int64).tolist()
+    assert [_sar_scaled(p, spec.adc_bits, spec.threshold, nearest)
+            for p in pmacs] == want
+    if _packs(spec):
+        s = int(spec.adc_step)
+        for p, other in zip(pmacs, reversed(pmacs)):
+            lo, hi = _halves(_sar2(_pair(p, other), spec.adc_bits, s,
+                                   nearest))
+            assert (lo, hi) == (want[p + 1] * s, want[other + 1] * s)
+
+
+def test_packed_group_sums_unpack_exactly():
+    """The packed path's per-group sum of s_b 2^b (code * s) over both
+    halves, at its extremes (the launch takes it up to 255 t < 2^15) and
+    at random, unpacks into the two exact sums: hi = (sum + 2^15) >> 16,
+    lo = sum - hi 2^16."""
+    rng = np.random.default_rng(0)
+    pw = [1 << b for b in range(7)] + [-(1 << 7)]
+    top = (1 << 15) // 255  # the largest code * s a group may hold
+    cases = [([top] * 8, [0] * 8), ([0] * 8, [top] * 8),
+             ([0] * 7 + [top], [top] * 7 + [0]), ([top] * 8, [top] * 8)]
+    cases += [(list(rng.integers(0, top + 1, 8)),
+               list(rng.integers(0, top + 1, 8))) for _ in range(200)]
+    for lo_vals, hi_vals in cases:
+        total = 0
+        for b in range(8):
+            total = (total + _pair(int(lo_vals[b]), int(hi_vals[b]))
+                     * (pw[b] & U32)) & U32
+        t = (total + 0x8000) & U32
+        hi = (t - (1 << 32) if t >> 31 else t) >> 16  # int32 >> 16
+        lo = (total - (hi << 16)) & U32
+        lo = lo - (1 << 32) if lo & (1 << 31) else lo
+        assert lo == sum(p * int(v) for p, v in zip(pw, lo_vals))
+        assert hi == sum(p * int(v) for p, v in zip(pw, hi_vals))
+
+
+@pytest.mark.parametrize("mode", ["floor", "nearest"])
+def test_off_grid_step_takes_the_table_and_the_scaled_sar(mode):
+    """At cutoff 0.3 the step (179 / 16 pMACs) is not whole: B1 reads its
+    shared-memory table and B3 runs its scaled run-time search, and both
+    give the plain version's codes."""
+    spec = TConfig(adc_mode=mode, cutoff=0.3).to_spec()
+    nearest = int(mode == "nearest")
+    assert _shift2_constants(spec, nearest) is None and not _packs(spec)
+    pmacs = [int(p) for p in _all_pmacs(spec)]
+    want = cim_mac._sar_codes(_all_pmacs(spec), spec).tolist()
+    assert [_sar_scaled(p, spec.adc_bits, spec.threshold, nearest)
+            for p in pmacs] == want
+    assert [_table_code(p, spec.adc_bits, spec.threshold,
+                        spec.adc_codes - 1, nearest) for p in pmacs] == want
+
+
+@pytest.mark.parametrize("weight_bits", range(1, 9))
+def test_plane_fragment_bits_equal_unpacked_planes(weight_bits):
+    """The weights staged as 32-bit words of 4 k-consecutive masked bytes
+    of one column (stage_plane_weights, weight_bits_of<false>) give, as
+    (word >> b) & 0x01010101, every plane bit of _unpacked_planes, from
+    int8 codes and from uint8 packed bytes alike."""
+    rng = np.random.default_rng(weight_bits)
+    k, n = 32, 12
+    raw = rng.integers(0, 256, (k, n)).astype(np.uint8)
+    for w in (torch.from_numpy(raw), torch.from_numpy(raw.view(np.int8))):
+        planes = cim_mac._unpacked_planes(w, weight_bits)  # [K, B, N]
+        masked = w.numpy().view(np.uint8).astype(np.uint32) & (
+            (1 << weight_bits) - 1)
+        for q in range(k // 4):
+            word = (masked[4 * q] | masked[4 * q + 1] << 8
+                    | masked[4 * q + 2] << 16 | masked[4 * q + 3] << 24)
+            for b in range(weight_bits):
+                frag = (word >> b) & 0x01010101
+                for e in range(4):
+                    np.testing.assert_array_equal(
+                        (frag >> (8 * e)) & 0xFF,
+                        planes[4 * q + e, b].numpy().astype(np.uint32))
+
+
+@pytest.mark.parametrize("kernel", ["gpq_matmul", "cell_adc_gpq_matmul"])
+def test_per_plane_wrappers_raise_for_act_bits_over_8(kernel):
+    """Off the CPU, B1 and B3 refuse act_bits > 8 (their A operand is an
+    unsigned byte) before any build or launch."""
+    x = torch.empty((4, 16), dtype=torch.int32, device="meta")
+    w = torch.empty((16, 4), dtype=torch.int8, device="meta")
+    before = cim_mac.LAUNCHES[kernel]
+    with pytest.raises(ValueError, match="act_bits <= 8"):
+        getattr(cim_mac, kernel)(x, w, TConfig(act_bits=9))
+    getattr(cim_mac, kernel)(torch.zeros((4, 16), dtype=torch.int32),
+                             torch.zeros((16, 4), dtype=torch.int8),
+                             TConfig(act_bits=9))  # the CPU path takes it
     assert cim_mac.LAUNCHES[kernel] == before
