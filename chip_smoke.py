@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
-    python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --ablate   # phases 1-2, then the ablation builds
+    python3 chip_smoke.py
 
 Needs a CUDA device and the repository's ``src/repro_torch`` beside this
 file; it exits non-zero without either. Phases (each one fails the run):
@@ -23,10 +22,11 @@ file; it exits non-zero without either. Phases (each one fails the run):
               bits {3, 4, 5} at cutoff 0.5 plus the step-12 point, floor
               and nearest, int8 codes and uint8 packed bytes, shapes that
               are not tile multiples, B1 and B3 at act_bits 8 with codes
-              over the whole byte range and at four points off the grid
+              over the whole byte range, at four points off the grid
               (cutoff 0.3, 6 ADC bits, 6 and 12 rows) that take their
-              other paths, and the ResNet's own 14 operands at batch 256,
-              on which B3 must also equal B1. Then each depth guard must
+              other paths and at 24 and 32 of 32 rows (two k16 steps per
+              group), and the ResNet's own 14 operands at batch 256, on
+              which B3 must also equal B1. Then each depth guard must
               raise.
   4. slice    slice 1's path: the committed ResNet checkpoint (widths
               16/32/64, two blocks per stage), planned under the paper
@@ -51,20 +51,18 @@ file; it exits non-zero without either. Phases (each one fails the run):
               equal the p8t result's, and those slice 1's cim-kernel
               logits; the card against the CPU path on 8 images.
   6. timings  each of the ResNet's 14 kernel operands at batch 256, for
-              each kernel: the kernel's device time (10 launches in one
-              CUDA graph, CUDA events around 5 replays, median, after
-              warm-up), its time over 10 back-to-back wrapper calls (the
-              host's share included) and the plain
-              version's (CUDA events around 10 calls, median of 5
-              windows) beside the bound
-              max(bytes / 3.35 TB/s, MAC ops / 1979 TOP/s int8);
-              whole-forward images/s per mode.
+              each kernel: its time over 10 back-to-back wrapper calls
+              (CUDA events around 10 calls, median of 5 windows, after
+              warm-up; the host's share of short launches included),
+              the report's ``ms``; its device time (10 launches in one
+              CUDA graph, CUDA events around 5 replays, median), the
+              report's ``device_ms``; and the plain version's, timed as
+              ``ms``, beside the bound
+              max(bytes / 3.35 TB/s, MAC ops / 1979 TOP/s int8). B1 and
+              B3 are timed again at cutoff 0.3, a step that is not a
+              whole number of pMACs (B1's code table, B3's scaled
+              search).
   7. report   one JSON line listing every kernel of the port.
-
-``--ablate`` builds each entry of ABLATIONS (a source with preprocessor
-names set: B1's flash as a table, B1 without a conversion, B3's SAR with
-a run-time step count) and times it against the plain build on the 14
-ResNet operands, in turns, with B2 as the yardstick.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -72,7 +70,6 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
-import concurrent.futures
 import dataclasses
 import json
 import os
@@ -95,16 +92,6 @@ MACRO_CONVS = 14  # per forward: stem and fc stay digital
 CALIBRATION_DIR = ROOT / "results" / "calibration"
 # The per-plane kernels, whose plane MACs run on the int8 tensor cores.
 PLANE_KERNELS = ("gpq_matmul", "cell_adc_gpq_matmul")
-# Builds of a source with preprocessor names set, timed against the plain
-# build in `--ablate` runs: (kernel, defines, what it shows).
-ABLATIONS = (
-    ("gpq_matmul", ("GPQ_FLASH_TABLE",),
-     "B1 with the flash as a shared-memory table (not clamp-then-mask)"),
-    ("gpq_matmul", ("GPQ_ADC_PLAIN_SUM",),
-     "B1 with no conversion: the pMAC summed as is (other results)"),
-    ("cell_adc_gpq_matmul", ("GPQ_SAR_RUNTIME",),
-     "B3 with the SAR's step count read at run time"),
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,10 +138,10 @@ def card_line() -> str:
 
 def cuda_time_ms(fn, windows: int = 5, per_window: int = 10,
                  warmup: int = 3) -> float:
-    """Device time per launch: the median over ``windows`` CUDA-event
-    windows of ``per_window`` back-to-back launches each, after warm-up.
-    Launching back to back keeps the device queue ahead of the host, so a
-    short kernel's time is not padded by the wrapper's host-side work."""
+    """Time per call: the median over ``windows`` CUDA-event windows of
+    ``per_window`` back-to-back calls each, after warm-up. A launch
+    shorter than the caller's host work per call is timed at that host
+    work (``graph_time_ms`` leaves it out)."""
     import torch
 
     for _ in range(warmup):
@@ -415,6 +402,22 @@ def phase_kernel(params, bn, images):
                 for kern in KERNELS:
                     if kern.name in PLANE_KERNELS:
                         check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
+    # Groups of 24 and 32 rows: two chained k16 steps per group (a ring of
+    # two groups, 32 weight slots per group), codes by B1's table and B3's
+    # scaled search (a group's sum does not fit a 16-bit half there).
+    for kw in (dict(rows_per_group=32, rows_active=24),
+               dict(rows_per_group=32, rows_active=32)):
+        for mode in ("floor", "nearest"):
+            cfg = CIMConfig(adc_mode=mode, **kw)
+            for m, k, n in ((37, 100, 21), (300, 17, 70), (513, 288, 33),
+                            (4099, 32, 64)):
+                x = torch.randint(0, 16, (m, k), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+                w = torch.randint(-128, 128, (k, n), generator=gen,
+                                  device="cuda", dtype=torch.int8)
+                for kern in KERNELS:
+                    if kern.name in PLANE_KERNELS:
+                        check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
     ops, spec = resnet_operands(params, bn, images)
     if len(ops) != MACRO_CONVS:
         raise AssertionError(f"{len(ops)} macro convs, want {MACRO_CONVS}")
@@ -657,15 +660,17 @@ def phase_variants(params, bn, batches, slice1_logits):
 
 
 def phase_timings(ops, spec):
+    """Per kernel, one forward's 14 launches summed: (ms over back-to-back
+    wrapper calls, plain ms, bound ms, bound_by, device ms in a graph)."""
     rows = {}
     for kern in KERNELS:
         per_op = []
         for name, x, w in ops:
             m, k = x.shape
             n = w.shape[1]
-            ms = graph_time_ms(
+            ms = cuda_time_ms(
                 lambda x=x, w=w, f=kern.wrapper(): f(x, w, spec))
-            calls_ms = cuda_time_ms(
+            device_ms = graph_time_ms(
                 lambda x=x, w=w, f=kern.wrapper(): f(x, w, spec))
             plain_ms = cuda_time_ms(
                 lambda x=x, w=w, f=kern.plain(): f(x, w, spec))
@@ -674,12 +679,12 @@ def phase_timings(ops, spec):
             macs = m * k * n * (spec.weight_bits if kern.per_plane else 1)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
-            per_op.append((ms, plain_ms, max(bytes_ms, ops_ms), calls_ms,
+            per_op.append((ms, plain_ms, max(bytes_ms, ops_ms), device_ms,
                            bytes_ms >= ops_ms))
             log(f"[timing] {kern.name:22s} {name:12s} [{m}, {k}]x[{k}, {n}]: "
-                f"kernel {ms:.4f} ms ({calls_ms:.4f} back-to-back wrapper "
-                f"calls), plain {plain_ms:.4f} ms, bound "
-                f"{max(bytes_ms, ops_ms):.4f} ms "
+                f"kernel {ms:.4f} ms over back-to-back wrapper calls "
+                f"({device_ms:.4f} device ms in a graph), plain "
+                f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
                 f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
                 f"{nbytes / 1e6:.1f} MB, {2 * macs / 1e9:.2f} G int8 "
                 f"ops)")
@@ -687,56 +692,28 @@ def phase_timings(ops, spec):
         bound_by = ("bytes" if sum(r[4] for r in per_op) * 2 >= len(per_op)
                     else "operations")
         log(f"[timing] {kern.name}: one forward's {len(per_op)} launches: "
-            f"kernel {tot[0]:.4f} ms ({tot[3]:.4f} back-to-back wrapper "
-            f"calls), plain {tot[1]:.4f} ms, bound "
-            f"{tot[2]:.4f} ms ({bound_by}); library: none (no single "
+            f"kernel {tot[0]:.4f} ms over back-to-back wrapper calls "
+            f"({tot[3]:.4f} device ms in a graph), plain {tot[1]:.4f} ms, "
+            f"bound {tot[2]:.4f} ms ({bound_by}); library: none (no single "
             f"PyTorch call computes a GPQ transfer)")
-        rows[kern.name] = (*tot[:3], bound_by)
+        rows[kern.name] = (*tot[:3], bound_by, tot[3])
+    # Off the grid: a step of 179 / 16 pMACs takes B1's shared-memory code
+    # table and B3's scaled run-time search, one code per register.
+    off = spec.replace(cutoff=0.3)
+    for kern in KERNELS:
+        if kern.name not in PLANE_KERNELS:
+            continue
+        ms = sum(cuda_time_ms(lambda x=x, w=w, f=kern.wrapper(): f(x, w, off))
+                 for _, x, w in ops)
+        device_ms = sum(
+            graph_time_ms(lambda x=x, w=w, f=kern.wrapper(): f(x, w, off))
+            for _, x, w in ops)
+        log(f"[timing] {kern.name} at cutoff 0.3 (off the grid): one "
+            f"forward's {len(ops)} launches: {ms:.4f} ms over back-to-back "
+            f"wrapper calls ({device_ms:.4f} device ms in a graph), against "
+            f"{rows[kern.name][0]:.4f} ({rows[kern.name][4]:.4f}) at the "
+            f"paper point")
     return rows
-
-
-def phase_ablate(ops, spec):
-    """Each build of ABLATIONS against the plain build of its source on
-    the 14 ResNet operands, in turns (plain, variant, variant, plain), and
-    B2 beside them as the yardstick across calls: ms per forward."""
-    import ctypes
-
-    from repro_torch.kernels import build, cim_mac
-
-    with concurrent.futures.ThreadPoolExecutor(len(ABLATIONS)) as pool:
-        paths = list(pool.map(
-            lambda a: build.build_all([a[0]], defines=a[1])[a[0]],
-            ABLATIONS))
-    for key, (secs, _) in sorted(build.BUILD_LOG.items()):
-        log(f"[ablate] built {key}: nvcc {secs:.1f} s")
-
-    def use(name, lib):
-        build._LIBS[name] = lib
-        cim_mac._BOUND.discard(name)
-
-    def forward_ms(name):
-        fn = getattr(cim_mac, name)
-        per_op = [graph_time_ms(lambda x=x, w=w: fn(x, w, spec))
-                  for _, x, w in ops]
-        return sum(per_op), per_op[0]
-
-    log(f"[ablate] {KERNELS[1].name} (control): "
-        f"{forward_ms(KERNELS[1].name)[0]:.4f} ms per forward")
-    for (name, defines, what), path in zip(ABLATIONS, paths):
-        plain_lib = build.library(name)
-        variant_lib = ctypes.CDLL(str(path))
-        times = {"plain": [], "variant": []}
-        for which in ("plain", "variant", "variant", "plain"):
-            use(name, plain_lib if which == "plain" else variant_lib)
-            times[which].append(forward_ms(name))
-        use(name, plain_lib)
-        p = [t[0] for t in times["plain"]]
-        v = [t[0] for t in times["variant"]]
-        log(f"[ablate] {name} -D{' -D'.join(defines)} ({what}): "
-            f"{v[0]:.4f}, {v[1]:.4f} ms per forward against the plain "
-            f"build's {p[0]:.4f}, {p[1]:.4f}; stage-0 launch "
-            f"{times['variant'][0][1]:.4f} against "
-            f"{times['plain'][0][1]:.4f} ms")
 
 
 def main() -> int:
@@ -755,11 +732,6 @@ def main() -> int:
         batches.append((torch.from_numpy(b["image"]).cuda(),
                         torch.from_numpy(b["label"]).long().cuda()))
 
-    if "--ablate" in sys.argv[1:]:
-        ops, spec = resnet_operands(params, bn, batches[0][0])
-        phase_ablate(ops, spec)
-        log(card)
-        return 0
     ops, spec, max_err = phase_kernel(params, bn, batches[0][0])
     _, slice1_logits = phase_slice(params, bn, batches)
     phase_profile(params, bn, batches[0][0])
@@ -774,6 +746,7 @@ def main() -> int:
         "launches": launches[kern.name],
         "max_abs_err": max_err[kern.name],
         "ms": timings[kern.name][0],
+        "device_ms": timings[kern.name][4],
         "plain_ms": timings[kern.name][1],
         "bound_ms": timings[kern.name][2],
         "bound_by": timings[kern.name][3],

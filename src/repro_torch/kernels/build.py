@@ -37,8 +37,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
-# name (and -D defines) -> (seconds, compiler output) of builds made by
-# this process
+# name -> (seconds, compiler output) of builds made by this process
 BUILD_LOG: dict[str, tuple[float, str]] = {}
 
 
@@ -68,21 +67,16 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(src: pathlib.Path, defines: tuple[str, ...] = ()
-              ) -> pathlib.Path:
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+def _lib_path(src: pathlib.Path) -> pathlib.Path:
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: list[str] | None = None,
-              defines: tuple[str, ...] = ()) -> dict[str, pathlib.Path]:
+def build_all(names: list[str] | None = None) -> dict[str, pathlib.Path]:
     """Compile the named sources (default: all) in parallel; return their
-    library paths. Sources whose library already exists are skipped.
-    ``defines`` (preprocessor names) build a variant of each source into
-    a library of its own; ``library`` loads only the plain builds."""
+    library paths. Sources whose library already exists are skipped."""
     srcs = sources()
     names = list(srcs) if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -91,13 +85,12 @@ def build_all(names: list[str] | None = None,
     for name in names:
         if name not in srcs:
             raise KeyError(f"no kernel source {name}.cu in {CSRC}")
-        lib = _lib_path(srcs[name], defines)
+        lib = _lib_path(srcs[name])
         out[name] = lib
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
-               "-o", str(tmp), str(srcs[name])]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
         procs[name] = (time.perf_counter(), tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
@@ -109,8 +102,7 @@ def build_all(names: list[str] | None = None,
                 f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}"
             )
         tmp.replace(out[name])  # atomic publish
-        key = " ".join([name, *(f"-D{d}" for d in defines)])
-        BUILD_LOG[key] = (time.perf_counter() - t0, log)
+        BUILD_LOG[name] = (time.perf_counter() - t0, log)
     return out
 
 

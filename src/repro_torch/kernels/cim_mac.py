@@ -53,6 +53,12 @@ class DepthGuardError(ValueError):
     """K is past the reference's exact-accumulation depth."""
 
 
+class KernelSpecError(ValueError):
+    """The operating point is one the CUDA kernel does not take (B1 and
+    B3: act_bits > 8 or more than 32 active rows); the plain version
+    takes it."""
+
+
 def _depth_guard(k: int, spec: MacroSpec) -> None:
     """The reference's f32 exact-accumulation bound of the per-plane
     kernels (B1, B3), kept as the contract.
@@ -230,12 +236,12 @@ def _check_plane_spec(spec: MacroSpec) -> None:
     """What the per-plane tensor-core kernels (B1, B3) take: activation
     codes as unsigned bytes, a row group in at most two k16 steps."""
     if spec.act_bits > 8:
-        raise ValueError(
+        raise KernelSpecError(
             f"the per-plane kernels take act_bits <= 8 (codes in [0, 256) "
             f"as unsigned bytes); got act_bits={spec.act_bits}"
         )
     if spec.rows_active > 32:
-        raise ValueError(
+        raise KernelSpecError(
             f"the per-plane kernels take rows_active <= 32; got "
             f"{spec.rows_active}"
         )

@@ -34,9 +34,8 @@
 // add-min each, for two codes at a time (SarSearch below). At the grid's
 // and the paper's adc_bits (3, 4, 5) the step count is a compile-time
 // constant, and the search unrolls into straight-line code; other points
-// take the run-time loop in a scaled form, one code at a time
-// (-DGPQ_SAR_RUNTIME sends every point there, the ablation PERF.md
-// reports).
+// take the run-time loop in a scaled form, one code at a time, several
+// times slower (PERF.md times both at the ResNet's operands).
 
 #include "gpq_tile.cuh"
 #include "plane_mma.cuh"
@@ -134,14 +133,12 @@ int cell_adc_gpq_matmul_launch(const void* x, const void* w, void* out,
   cudaError_t (*launch)(const void*, const void*, void*, int, int, int, int,
                         int, int, int, int, float, cudaStream_t) =
       launch_sar<0>;
-#ifndef GPQ_SAR_RUNTIME
   // A whole step, and a group's shift-add sum in a signed 16-bit half.
   if (threshold % (1 << adc_bits) == 0 && 255 * threshold < (1 << 15)) {
     if (adc_bits == 3) launch = launch_sar<3>;
     if (adc_bits == 4) launch = launch_sar<4>;
     if (adc_bits == 5) launch = launch_sar<5>;
   }
-#endif
   return static_cast<int>(launch(x, w, out, M, K, N, rows, weight_bits,
                                  adc_bits, threshold, nearest, adc_step, st));
 }

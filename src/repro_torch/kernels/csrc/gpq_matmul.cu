@@ -35,10 +35,8 @@
 // (FlashShift2). The host checks the form against the exact division
 // for every pMAC from -1 to the threshold before it launches. Any other
 // point reads a pMAC -> code table in shared memory (dividing above its
-// 1024 entries). PERF.md compares the two on the card: a build with
-// -DGPQ_FLASH_TABLE forces the table, and one with -DGPQ_ADC_PLAIN_SUM
-// replaces the ADC by the pMAC itself (the ablation without a
-// conversion, with other results).
+// 1024 entries), one code per register: several times slower than the
+// packed flash (PERF.md times both at the ResNet's operands).
 
 #include <algorithm>
 
@@ -99,17 +97,6 @@ struct FlashTable {
   }
 };
 
-#ifdef GPQ_ADC_PLAIN_SUM
-struct PlainSum {  // ablation: no conversion, the pMAC itself
-  static constexpr bool kPacked = false;
-  struct Table {};
-  __device__ __forceinline__ void fill(Table&) const {}
-  __device__ __forceinline__ int code(const Table&, int p) const {
-    return p;
-  }
-};
-#endif
-
 long long floor_div(long long a, long long d) {
   const long long q = a / d;
   return (a % d != 0 && a < 0) ? q - 1 : q;  // d > 0
@@ -157,21 +144,14 @@ int gpq_matmul_launch(const void* x, const void* w, void* out, int M, int K,
       adc_bits < 1 || adc_bits > 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-#if defined(GPQ_ADC_PLAIN_SUM)
-  return static_cast<int>(gpq::launch_plane_gpq(
-      x, w, out, M, K, N, rows, weight_bits, PlainSum{}, adc_step, st));
-#else
-#ifndef GPQ_FLASH_TABLE
   FlashShift2 shift2;
   if (flash_shift2(adc_bits, threshold, adc_codes - 1, nearest, &shift2))
     return static_cast<int>(gpq::launch_plane_gpq(
         x, w, out, M, K, N, rows, weight_bits, shift2,
         adc_step / static_cast<float>(threshold >> adc_bits), st));
-#endif
   const FlashTable table{adc_bits, threshold, adc_codes - 1, nearest};
   return static_cast<int>(gpq::launch_plane_gpq(
       x, w, out, M, K, N, rows, weight_bits, table, adc_step, st));
-#endif
 }
 
 }  // extern "C"

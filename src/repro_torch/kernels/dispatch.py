@@ -37,8 +37,10 @@ There is no autotune cache yet (ROADMAP slice 5), so no "tuned" source.
 An explicit ``backend=`` request is always honored and any error it
 raises propagates; an implicit pick that raises the kernel's depth
 guard (``DepthGuardError``, a ``ValueError``) falls back to the scan and
-is recorded as "guard-fallback". Build, launch and operand errors
-always propagate. ``record_resolutions`` lets callers assert exactly
+is recorded as "guard-fallback", and one whose operating point the
+kernel does not take (``KernelSpecError``: B1 and B3 at act_bits > 8 or
+over 32 active rows) as "spec-fallback". Build, launch and operand
+errors always propagate. ``record_resolutions`` lets callers assert exactly
 which implementation ran.
 
 An implementation is ``fn(x_codes, w_codes, spec, *, generator=None,
@@ -59,7 +61,7 @@ from repro_torch.core import variants as variants_lib
 from repro_torch.core.params import CIMConfig
 from repro_torch.core.pipeline import MacroSpec, as_spec
 from repro_torch.kernels import ref as ref_lib
-from repro_torch.kernels.cim_mac import DepthGuardError
+from repro_torch.kernels.cim_mac import DepthGuardError, KernelSpecError
 
 # fn(x_codes, w_codes, spec, *, generator, planes) -> [M, N] f32
 KernelFn = Callable[..., torch.Tensor]
@@ -99,7 +101,9 @@ class Resolution:
     """One dispatch decision."""
 
     key: KernelKey
-    source: str  # "explicit" | "noise" | "heuristic" | "guard-fallback"
+    # "explicit" | "noise" | "heuristic" | "guard-fallback" |
+    # "spec-fallback"
+    source: str
 
 
 _TABLE: dict[KernelKey, KernelImpl] = {}
@@ -305,16 +309,18 @@ def dispatch(
         return run(impl)
     try:
         return run(impl)
-    except DepthGuardError:
-        # The implicitly chosen kernel is infeasible at this depth: fall
-        # back to the always-feasible scan and record it. Explicit
-        # requests raise above; every other error propagates.
+    except (DepthGuardError, KernelSpecError) as e:
+        # The implicitly chosen kernel is infeasible at this depth or
+        # operating point: fall back to the always-feasible scan and
+        # record it. Explicit requests raise above; every other error
+        # propagates.
         scan = lookup(variant, "scan", cell, dtype)
         if scan is None:
             raise
         _notify(Resolution(
             key=KernelKey(variant, "scan", cell, dtype),
-            source="guard-fallback",
+            source=("guard-fallback" if isinstance(e, DepthGuardError)
+                    else "spec-fallback"),
         ))
         return run(scan)
 

@@ -197,6 +197,35 @@ def test_implicit_kernel_depth_guard_falls_back_and_is_recorded(monkeypatch):
         dispatch.dispatch(x, w, cfg, backend="cuda")  # explicit: loud
 
 
+@pytest.mark.parametrize("variant", ["p8t", "cell-adc"])
+@pytest.mark.parametrize("kw", [dict(act_bits=9),
+                                dict(rows_per_group=64, rows_active=48)],
+                         ids=["act_bits9", "rows48"])
+def test_implicit_kernel_spec_refusal_falls_back_and_is_recorded(
+        monkeypatch, variant, kw):
+    """Where B1/B3 refuse the operating point on the card, an implicit
+    pick runs the scan (recorded as "spec-fallback") and an explicit
+    request raises, with no launch either way."""
+    monkeypatch.setattr(dispatch, "_heuristic_backend",
+                        lambda *a, **k: "cuda")
+    monkeypatch.setattr(cim_mac, "_on_cpu", lambda x, w: False)  # the card
+    rng = np.random.default_rng(1)
+    cfg = TConfig(**kw)
+    x = torch.from_numpy(
+        rng.integers(0, 1 << cfg.act_bits, (5, 100)).astype(np.int32))
+    w = torch.from_numpy(rng.integers(-128, 128, (100, 3)).astype(np.int8))
+    before = sum(cim_mac.LAUNCHES.values())
+    with dispatch.record_resolutions() as log:
+        got = dispatch.dispatch(x, w, cfg, variant=variant)
+    assert [(r.key.backend, r.source) for r in log] == [
+        ("cuda", "heuristic"), ("scan", "spec-fallback")]
+    want = dispatch.dispatch(x, w, cfg, variant=variant, backend="scan")
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(cim_mac.KernelSpecError):
+        dispatch.dispatch(x, w, cfg, variant=variant, backend="cuda")
+    assert sum(cim_mac.LAUNCHES.values()) == before
+
+
 def test_implicit_kernel_other_errors_propagate(monkeypatch):
     monkeypatch.setattr(dispatch, "_heuristic_backend",
                         lambda *a, **k: "cuda")
