@@ -13,21 +13,23 @@ file; it exits non-zero without either. Phases (each one fails the run):
               kernels/csrc`` (nvcc, sm_90a, one process per source, all
               started together), with the build seconds, registers,
               static shared memory and spills per kernel entry; a spill
-              in B1 or B3 fails the run, and so does a B1 or B3 library
-              whose SASS (cuobjdump, where one is found) has no IMMA,
-              the tensor cores' integer MMA.
+              fails the run, and so does a library whose SASS
+              (cuobjdump, where one is found) has no IMMA, the tensor
+              cores' integer MMA.
   3. kernel   each GPQ kernel (B1 gpq_matmul, B2 adder_tree_gpq_matmul,
               B3 cell_adc_gpq_matmul) against its plain PyTorch version
               on the card with ``torch.equal``: rows {4, 8, 16} x ADC
               bits {3, 4, 5} at cutoff 0.5 plus the step-12 point, floor
               and nearest, int8 codes and uint8 packed bytes, shapes that
-              are not tile multiples, B1 and B3 at act_bits 8 with codes
-              over the whole byte range, at four points off the grid
-              (cutoff 0.3, 6 ADC bits, 6 and 12 rows) that take their
-              other paths and at 24 and 32 of 32 rows (two k16 steps per
-              group), and the ResNet's own 14 operands at batch 256, on
-              which B3 must also equal B1. Then each depth guard must
-              raise.
+              are not tile multiples, act_bits 8 with codes over the
+              whole byte range, four points off the grid (cutoff 0.3, 6
+              ADC bits, 6 and 12 rows) that take B1's and B3's other
+              paths, 24 and 32 of 32 rows (two k16 steps per group), B2
+              on an operand whose group sums take every merged value at
+              cutoffs 0.5, 0.25, 0.3, 0.35 and 0.4 (steps that are not
+              whole, where float32 division and exact arithmetic part),
+              and the ResNet's own 14 operands at batch 256, on which B3
+              must also equal B1. Then each depth guard must raise.
   4. slice    slice 1's path: the committed ResNet checkpoint (widths
               16/32/64, two blocks per stage), planned under the paper
               policy, on 4 batches of 256 synthetic eval images under fp,
@@ -58,10 +60,10 @@ file; it exits non-zero without either. Phases (each one fails the run):
               CUDA graph, CUDA events around 5 replays, median), the
               report's ``device_ms``; and the plain version's, timed as
               ``ms``, beside the bound
-              max(bytes / 3.35 TB/s, MAC ops / 1979 TOP/s int8). B1 and
-              B3 are timed again at cutoff 0.3, a step that is not a
-              whole number of pMACs (B1's code table, B3's scaled
-              search).
+              max(bytes / 3.35 TB/s, MAC ops / 1979 TOP/s int8). Each is
+              timed again at cutoff 0.3, a step that is not a whole
+              number of pMACs (B1's code table, B3's scaled search; B2
+              has one conversion path).
   7. report   one JSON line listing every kernel of the port.
 
 The last line is {"ok": true, "device": {...}}.
@@ -90,8 +92,6 @@ BATCH = 256
 N_BATCHES = 4
 MACRO_CONVS = 14  # per forward: stem and fc stay digital
 CALIBRATION_DIR = ROOT / "results" / "calibration"
-# The per-plane kernels, whose plane MACs run on the int8 tensor cores.
-PLANE_KERNELS = ("gpq_matmul", "cell_adc_gpq_matmul")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -287,12 +287,11 @@ def phase_build():
         for e in ptxas_entries(out):
             log(f"[build]   {e['entry'][:110]}: {e['used']}; spill "
                 f"stores/loads {e['spill']} bytes")
-            if name in PLANE_KERNELS and any(e["spill"]):
+            if any(e["spill"]):
                 spills.append((name, e["entry"], e["spill"]))
     if spills:
-        raise AssertionError(f"register spills in the per-plane kernels: "
-                             f"{spills}")
-    log(f"[build] no register spills in {', '.join(PLANE_KERNELS)}")
+        raise AssertionError(f"register spills in the kernels: {spills}")
+    log(f"[build] no register spills in {', '.join(sorted(libs))}")
     tool = find_cuobjdump()
     if tool is None:
         log("[build] no cuobjdump found (toolkit or triton's bundled one): "
@@ -304,7 +303,7 @@ def phase_build():
         log(f"[build] {name} SASS ({tool}): {sum(ops.values())} "
             f"instructions; " + ", ".join(f"{op} {ops[op]}"
                                           for op in SASS_OPS))
-        if name in PLANE_KERNELS and ops["IMMA"] == 0:
+        if ops["IMMA"] == 0:
             raise AssertionError(f"{name}: no IMMA in its SASS")
 
 
@@ -331,6 +330,37 @@ def resnet_operands(params, bn, images):
     with torch.no_grad():
         resnet.forward(planned, bn, images, cfg, tap=tap)
     return ops, policy.cim
+
+
+def merged_range_operand(cfg):
+    """x [T, rows], w [rows, 4] (one row group) whose column-0 group sums
+    take every merged value in [m_min, m_max] of cfg once: w[:, 0] =
+    (-128, 127, 1, 0, ...), and target t is -128 a + 127 b + c with
+    byte codes (the kernels read codes as bytes; at act_bits 4 the
+    targets near the range's ends are no sum of 4-bit codes). The other
+    columns are random, over random codes in x[:, 3:]."""
+    import torch
+
+    from repro_torch.core.variants import merged_quant
+
+    mq = merged_quant(cfg)
+    rows = cfg.rows_active
+    gen = torch.Generator().manual_seed(1)
+    t = torch.arange(mq.m_min, mq.m_max + 1, dtype=torch.int64)
+    a = torch.where(t < 0, (127 - t) // 128, 0)
+    b = torch.where(t < 0, 0, t // 127)
+    c = t + 128 * a - 127 * b
+    x = torch.randint(0, 16, (len(t), rows), generator=gen,
+                      dtype=torch.int32)
+    x[:, 0], x[:, 1], x[:, 2] = a, b, c
+    w = torch.randint(-128, 128, (rows, 4), generator=gen,
+                      dtype=torch.int8)
+    w[:, 0] = 0
+    w[:3, 0] = torch.tensor([-128, 127, 1], dtype=torch.int8)
+    merged = x.to(torch.int64) @ w.to(torch.int64)
+    if int(x.max()) > 255 or not torch.equal(merged[:, 0], t):
+        raise AssertionError("the merged-range operand misses a value")
+    return x.cuda(), w.cuda()
 
 
 def phase_kernel(params, bn, images):
@@ -371,9 +401,9 @@ def phase_kernel(params, bn, images):
                                   device="cuda", dtype=torch.int8)
                 for kern in KERNELS:
                     check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
-    # act_bits = 8: codes over the whole byte range, the per-plane kernels'
-    # unsigned A operand at its edge (rows of 255 against all-ones weights
-    # reach the largest pMAC, 16 * 255).
+    # act_bits = 8: codes over the whole byte range, the kernels' unsigned
+    # A operand at its edge (rows of 255 against all-ones weights reach the
+    # largest pMAC, 16 * 255).
     for mode in ("floor", "nearest"):
         cfg = CIMConfig(adc_mode=mode, act_bits=8)
         for m, k, n in ((257, 144, 16), (130, 288, 40)):
@@ -384,12 +414,11 @@ def phase_kernel(params, bn, images):
             x[:3] = 255
             w[:16, :4] = -1
             for kern in KERNELS:
-                if kern.name in PLANE_KERNELS:
-                    check(kern, x, w, cfg, f"act_bits 8 {mode} {(m, k, n)}")
-    # Off the grid, for the per-plane kernels' other paths: a step that is
-    # not a whole number of pMACs (B1's code table, B3's scaled search),
-    # 6 ADC bits (B3's run-time step count), 6 rows (x copied 4 bytes at a
-    # time) and 12 rows (a group short of 16 slots).
+                check(kern, x, w, cfg, f"act_bits 8 {mode} {(m, k, n)}")
+    # Off the grid: a step that is not a whole number of pMACs (B1's code
+    # table, B3's scaled search), 6 ADC bits (B3's run-time step count), 6
+    # rows (x copied 4 bytes at a time) and 12 rows (a group short of 16
+    # slots).
     for kw in (dict(cutoff=0.3), dict(adc_bits=6), dict(rows_active=6),
                dict(rows_active=12)):
         for mode in ("floor", "nearest"):
@@ -400,8 +429,7 @@ def phase_kernel(params, bn, images):
                 w = torch.randint(-128, 128, (k, n), generator=gen,
                                   device="cuda", dtype=torch.int8)
                 for kern in KERNELS:
-                    if kern.name in PLANE_KERNELS:
-                        check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
+                    check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
     # Groups of 24 and 32 rows: two chained k16 steps per group (a ring of
     # two groups, 32 weight slots per group), codes by B1's table and B3's
     # scaled search (a group's sum does not fit a 16-bit half there).
@@ -416,12 +444,16 @@ def phase_kernel(params, bn, images):
                 w = torch.randint(-128, 128, (k, n), generator=gen,
                                   device="cuda", dtype=torch.int8)
                 for kern in KERNELS:
-                    if kern.name in PLANE_KERNELS:
-                        check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
+                    check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
+    b1, b2, b3 = KERNELS
+    x, w = merged_range_operand(CIMConfig())
+    for cutoff in (0.5, 0.25, 0.3, 0.35, 0.4):
+        for mode in ("floor", "nearest"):
+            check(b2, x, w, CIMConfig(adc_mode=mode, cutoff=cutoff),
+                  f"every merged value, cutoff {cutoff} {mode}")
     ops, spec = resnet_operands(params, bn, images)
     if len(ops) != MACRO_CONVS:
         raise AssertionError(f"{len(ops)} macro convs, want {MACRO_CONVS}")
-    b1, b2, b3 = KERNELS
     for mode in ("floor", "nearest"):
         cfg = spec.replace(adc_mode=mode)
         for name, x, w in ops:
@@ -698,11 +730,10 @@ def phase_timings(ops, spec):
             f"PyTorch call computes a GPQ transfer)")
         rows[kern.name] = (*tot[:3], bound_by, tot[3])
     # Off the grid: a step of 179 / 16 pMACs takes B1's shared-memory code
-    # table and B3's scaled run-time search, one code per register.
+    # table and B3's scaled run-time search, one code per register; B2's
+    # conversion is the same everywhere.
     off = spec.replace(cutoff=0.3)
     for kern in KERNELS:
-        if kern.name not in PLANE_KERNELS:
-            continue
         ms = sum(cuda_time_ms(lambda x=x, w=w, f=kern.wrapper(): f(x, w, off))
                  for _, x, w in ops)
         device_ms = sum(

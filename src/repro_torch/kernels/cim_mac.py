@@ -36,7 +36,6 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import math
 
 import torch
 
@@ -54,8 +53,8 @@ class DepthGuardError(ValueError):
 
 
 class KernelSpecError(ValueError):
-    """The operating point is one the CUDA kernel does not take (B1 and
-    B3: act_bits > 8 or more than 32 active rows); the plain version
+    """The operating point is one the CUDA kernels do not take (act_bits
+    > 8 or more than 32 active rows, for all three); the plain version
     takes it."""
 
 
@@ -233,16 +232,16 @@ def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor,
 
 
 def _check_plane_spec(spec: MacroSpec) -> None:
-    """What the per-plane tensor-core kernels (B1, B3) take: activation
+    """What the tensor-core kernel of B1, B2 and B3 takes: activation
     codes as unsigned bytes, a row group in at most two k16 steps."""
     if spec.act_bits > 8:
         raise KernelSpecError(
-            f"the per-plane kernels take act_bits <= 8 (codes in [0, 256) "
+            f"the GPQ kernels take act_bits <= 8 (codes in [0, 256) "
             f"as unsigned bytes); got act_bits={spec.act_bits}"
         )
     if spec.rows_active > 32:
         raise KernelSpecError(
-            f"the per-plane kernels take rows_active <= 32; got "
+            f"the GPQ kernels take rows_active <= 32; got "
             f"{spec.rows_active}"
         )
 
@@ -322,28 +321,6 @@ def gpq_matmul(
     )
 
 
-def _merged_window(mq) -> tuple[int, int, int]:
-    """(threshold, m_lo, m_hi) of B2's integer conversion.
-
-    ``threshold`` is the merged range's (step = threshold / 2^bits_eff).
-    Outside [m_lo, m_hi] the code saturates anyway (m_lo / step + 1/2 <=
-    code_min - 1/2, m_hi / step >= code_max + 1), so the kernel clamps
-    merged values to it, which bounds its numerator. Raises where that
-    numerator would not fit int32.
-    """
-    m_lo = math.floor((mq.code_min - 1) * mq.step)
-    m_hi = math.ceil((mq.code_max + 1) * mq.step)
-    threshold = round(mq.step * (1 << mq.bits_eff))
-    bound = max(-m_lo, m_hi) * (2 << mq.bits_eff) + 3 * threshold
-    if bound >= 1 << 31:
-        raise ValueError(
-            f"the adder-tree kernel's int32 conversion does not cover "
-            f"bits_eff={mq.bits_eff} at threshold {threshold}; use "
-            "variants.adder_tree_matmul_int"
-        )
-    return threshold, m_lo, m_hi
-
-
 def adder_tree_gpq_matmul(
     x_codes: torch.Tensor,
     w_codes: torch.Tensor,
@@ -351,20 +328,22 @@ def adder_tree_gpq_matmul(
 ) -> torch.Tensor:
     """Adder-tree GPQ matmul (B2) [M, K] x [K, N] -> [M, N] float32.
 
-    CPU tensors run :func:`adder_tree_gpq_matmul_plain`; CUDA tensors
-    launch ``csrc/adder_tree_gpq_matmul.cu`` or raise. Both raise
-    ``DepthGuardError`` past the reference's merged-code depth guard.
+    ``x_codes`` are activation codes in ``[0, 2**act_bits)``. CPU tensors
+    run :func:`adder_tree_gpq_matmul_plain`; CUDA tensors launch
+    ``csrc/adder_tree_gpq_matmul.cu`` (``act_bits <= 8``, at most 32
+    active rows, as B1) or raise. Both raise ``DepthGuardError`` past the
+    reference's merged-code depth guard.
     """
     spec = MacroSpec.from_config(cfg)
     if _on_cpu(x_codes, w_codes):
         return adder_tree_gpq_matmul_plain(x_codes, w_codes, spec)
+    _check_plane_spec(spec)
     _check_cuda_operands(x_codes, w_codes, spec)
     _merged_depth_guard(x_codes.shape[1], spec)
     mq = merged_quant(spec)
-    threshold, m_lo, m_hi = _merged_window(mq)
     return _launch(
         "adder_tree_gpq_matmul", x_codes, w_codes, spec.rows_active,
-        spec.weight_bits, mq.bits_eff, threshold, mq.code_min, mq.code_max, m_lo, m_hi,
+        spec.weight_bits, mq.code_min, mq.code_max,
         int(spec.adc_mode == "nearest"), float(mq.step),
         stream=_stream(x_codes),
     )

@@ -2,10 +2,11 @@
 // for sm_90a.
 //
 // Replaces repro/kernels/cim_mac.py::adder_tree_gpq_matmul (Pallas
-// kernel _adder_tree_kernel). For x [M, K] int32 activation codes and
-// w [K, N] weight bytes (int8 codes or uint8 packed-plane bytes):
+// kernel _adder_tree_kernel). For x [M, K] int32 activation codes
+// (0 .. 255) and w [K, N] weight bytes (int8 codes or uint8 packed-plane
+// bytes):
 //
-//   merged[m, g, n] = sum_b s_b 2^b sum_{k in row group g} x[m, k] bit_b(w[k, n])
+//   merged[m, g, n] = sum_b s_b 2^b sum_{k in group g} x[m, k] bit_b(w[k, n])
 //   code            = clip(floor(merged / step (+ 1/2 if nearest)),
 //                          code_min, code_max)
 //   out[m, n]       = step * sum_g code
@@ -13,159 +14,132 @@
 // with s_b = -1 on the MSB plane and (step, code_min, code_max) from
 // variants.merged_quant. No bit planes are unpacked: for a two's-
 // complement weight sum_b s_b 2^b bit_b(w) = w, so a group's merged
-// value is the signed integer dot product of its activation codes with
-// the weight codes, sign-extended from bit weight_bits - 1 of the masked
-// low bits (so int8 codes and uint8 packed-plane bytes give the same
-// value). That is one multiply-add per weight where the per-plane
-// kernels do weight_bits of them.
+// value is the dot product of its activation codes with the weight
+// codes, sign-extended from bit weight_bits - 1 of the masked low bits
+// (int8 codes and uint8 packed-plane bytes give the same value).
 //
-// The codes come from integer arithmetic. step = threshold / 2^bits_eff
-// (threshold of the merged range), so
-//   code = floor((merged * 2^(bits_eff+1) + nearest * threshold)
-//                / (2 * threshold)),
-// a FLOOR division toward minus infinity: merged is signed, and C++ `/`
-// truncates toward zero. The quotient is estimated in float32 (off by
-// at most one at these magnitudes) and corrected with one exact int32
-// remainder test. merged is first clamped to [m_lo, m_hi], the range
-// outside which the code saturates anyway, which keeps the numerator in
-// int32 (the wrapper checks the bound per operating point). The code
-// sum is carried in int32 and scaled by step once in the epilogue, as
-// the reference does; its depth guard keeps the sum below 2^24.
+// The code is the reference's float32 code: floor(RN(RN(merged / step)
+// + half)). Where the step is not a whole number of merged units,
+// merged / step can land within half an ulp of an integer, and float32
+// rounds it onto that integer where exact rational arithmetic does not,
+// so the quotient must be float32's correctly rounded one. The kernel
+// gets it without a divide: with r = RN(1 / step), q0 = RN(merged r),
+// the residual e = RN(merged - q0 step) (exact) and q = RN(q0 + e r),
+// three operations and no branch (a divide carries a slow-path branch
+// per call, which serialises a lane's conversions). The host checks q
+// against true division for every merged value the kernel can meet
+// before it launches (RecipCheck below).
 //
 // What bounds it on an H100: the int32 x stream, as for gpq_matmul.cu
 // (the same operands: 0.34 ms per ResNet forward at batch 256). The
-// tiling is gpq_tile.cuh's; the arithmetic is 1/weight_bits of the
-// per-plane kernels', so it runs several times faster than they do, but
-// this first version is still bound by instruction issue above the byte
-// bound (PERF.md).
+// design is plane_mma.cuh's with one signed plane (SignedPlane): one
+// mma.m16n8k16 u8 x s8 per (row group, 8 outputs), 1/8 of the per-plane
+// kernels' tensor-core work, and one conversion per (group, output),
+// 1/8 of their codes, about 10 full-rate instructions each (the int ->
+// float, floor and float -> int conversions as exact magic-number adds,
+// not the conversion unit's quarter-rate instructions), summed in int32
+// and scaled by step once at the store (the wrapper's depth guard keeps
+// the sum below 2^24).
 
-#include "gpq_tile.cuh"
+#include <cmath>
+#include <mutex>
+#include <vector>
+
+#include "gpq_launch.cuh"
+#include "plane_mma.cuh"
 
 namespace {
 
-struct MergedConversion {
-  int m_lo, m_hi;      // merged clamp window (codes saturate outside)
-  int scale_num;       // 2^(bits_eff + 1)
-  int nearest_t;       // nearest * threshold
-  int den;             // 2 * threshold
-  int code_min, code_max;
-  float inv_den;       // 1 / den, for the quotient estimate
+constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
+constexpr int kMagicBits = 0x4B400000;  // its bits
+constexpr int kCodeLimit = 1 << 22;     // |code| bound of the magic floor
 
-  __device__ __forceinline__ int code(int merged) const {
-    const int mg = min(max(merged, m_lo), m_hi);
-    const int num = mg * scale_num + nearest_t;
-    int q = __float2int_rd(__int2float_rn(num) * inv_den);
-    const int r = num - q * den;
-    if (r < 0) --q;
-    else if (r >= den) ++q;
-    return min(max(q, code_min), code_max);
+struct MergedConversion {
+  static constexpr bool kPacked = false;
+  struct Table {};
+  float step;  // f32(merged_quant.step)
+  float recip;  // RN(1 / step)
+  float half;  // 1/2 in nearest mode, else 0
+  float code_min, code_max;  // within +-2^20: bits_eff <= q_merged <= 21
+
+  __device__ __forceinline__ void fill(Table&) const {}
+  __device__ __forceinline__ int code(const Table&, int merged) const {
+    // bound: |merged| <= 2^(weight_bits-1) rows 255 < 2^21 (weight_bits
+    // <= 8, rows <= 32), so kMagic + merged is exact with ulp 1
+    const float m =
+        __fsub_rn(__int_as_float(kMagicBits + merged), kMagic);
+    const float q0 = __fmul_rn(m, recip);
+    const float q = __fmaf_rn(__fmaf_rn(-q0, step, m), recip, q0);
+    const float t = fminf(fmaxf(__fadd_rn(q, half), code_min), code_max);
+    // t + kMagic rounded down is kMagic + floor(t) for |t| <= 2^22
+    return __float_as_int(__fadd_rd(t, kMagic)) - kMagicBits;
   }
 };
 
-template <int BN>
-__global__ void __launch_bounds__(gpq::kThreads)
-adder_tree_kernel(const int32_t* __restrict__ x,
-                  const uint8_t* __restrict__ w, float* __restrict__ out,
-                  int M, int K, int N, int rows, int kc, int weight_bits,
-                  MergedConversion conv, float step) {
-  using T = gpq::Tile<BN>;
-  constexpr int kTM = gpq::kTM;
-  constexpr int kTN = gpq::kTN;
-  __shared__ int32_t xs[gpq::kXTileElems + T::BM];
-  // Weight codes, sign-extended into int8.
-  __shared__ __align__(16) uint8_t ws[T::KC_MAX * BN];
+// The kernel's quotient, as the host computes it (no contraction: the
+// host build targets plain x86-64 SSE, and std::fma rounds once).
+float recip_quotient(float m, float step, float recip) {
+  const float q0 = m * recip;
+  return std::fma(std::fma(-q0, step, m), recip, q0);
+}
 
-  const int tx = threadIdx.x % T::TX;
-  const int ty = threadIdx.x / T::TX;
-  const int m0 = blockIdx.x * T::BM;
-  const int n0 = blockIdx.y * BN;
-  const int xstride = kc + 1;
-
-  int acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    gpq::stage_chunk<BN, true>(xs, ws, x, w, M, K, N, m0, n0, k0, kc,
-                               weight_bits);
-    __syncthreads();
-    const int groups = (min(kc, K - k0) + rows - 1) / rows;
-    for (int g = 0; g < groups; ++g) {
-      int mg[kTM][kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) mg[i][j] = 0;
-      for (int r = 0; r < rows; ++r) {
-        const int kk = g * rows + r;
-        int xv[kTM];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-          xv[i] = xs[(ty + i * T::TY) * xstride + kk];
-        const uint32_t wq =
-            *reinterpret_cast<const uint32_t*>(&ws[kk * BN + tx * kTN]);
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          const int wv = static_cast<int8_t>((wq >> (8 * j)) & 0xffu);
-#pragma unroll
-          for (int i = 0; i < kTM; ++i) mg[i][j] += xv[i] * wv;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] += conv.code(mg[i][j]);
+// Whether the kernel's quotient is RN(m / step) for every |m| <=
+// max_abs, cached per (step, max_abs). Not seen to fail: about 7,000
+// steps (every significand from 1 to 2001, the all-ones ones, a sample up
+// to 2^24) over |m| <= 2^21 all pass.
+class RecipCheck {
+ public:
+  bool exact(float step, int max_abs) {
+    std::lock_guard<std::mutex> lock(mu_);
+    for (const Entry& e : seen_)
+      if (e.step == step && e.max_abs == max_abs) return e.exact;
+    const float recip = 1.0f / step;
+    bool ok = true;
+    for (int m = -max_abs; ok && m <= max_abs; ++m) {
+      const float mf = static_cast<float>(m);
+      ok = recip_quotient(mf, step, recip) == mf / step;
     }
-    __syncthreads();
+    seen_.push_back({step, max_abs, ok});
+    return ok;
   }
-  gpq::store_tile<BN>(acc, out, M, N, m0, n0, step);
-}
 
-template <int BN>
-cudaError_t launch(const void* x, const void* w, void* out, int M, int K,
-                   int N, int rows, int weight_bits,
-                   const MergedConversion& conv, float step,
-                   cudaStream_t stream) {
-  using T = gpq::Tile<BN>;
-  const int kc = gpq::chunk_rows<BN>(rows);
-  if (kc < rows) return cudaErrorInvalidValue;
-  const dim3 grid((M + T::BM - 1) / T::BM, (N + BN - 1) / BN);
-  adder_tree_kernel<BN><<<grid, gpq::kThreads, 0, stream>>>(
-      static_cast<const int32_t*>(x), static_cast<const uint8_t*>(w),
-      static_cast<float*>(out), M, K, N, rows, kc, weight_bits, conv, step);
-  return cudaGetLastError();
-}
+ private:
+  struct Entry {
+    float step;
+    int max_abs;
+    bool exact;
+  };
+  std::mutex mu_;
+  std::vector<Entry> seen_;
+};
+
+RecipCheck recip_check;
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
-// m_lo/m_hi: the merged clamp window; the wrapper has checked that
-// max(|m_lo|, |m_hi|) * 2^(bits_eff+1) + threshold fits int32.
+// Launches on `stream` without synchronising; returns cudaGetLastError(),
+// or cudaErrorNotSupported where the reciprocal quotient is not float32's
+// correctly rounded one for some merged value (never seen).
 int adder_tree_gpq_matmul_launch(const void* x, const void* w, void* out,
                                  int M, int K, int N, int rows,
-                                 int weight_bits, int bits_eff,
-                                 int threshold, int code_min, int code_max,
-                                 int m_lo, int m_hi, int nearest,
-                                 float step, void* stream) {
-  if (gpq::bad_shape(M, K, N, rows, weight_bits) || threshold <= 0 ||
-      bits_eff < 1 || bits_eff > 29 || m_lo > m_hi)
+                                 int weight_bits, int code_min,
+                                 int code_max, int nearest, float step,
+                                 void* stream) {
+  if (gpq::bad_shape(M, K, N, rows, weight_bits) || rows > 32 ||
+      !(step > 0.0f) || code_min > code_max || code_min < -kCodeLimit ||
+      code_max > kCodeLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  const MergedConversion conv{
-      m_lo, m_hi, 2 << bits_eff, nearest ? threshold : 0, 2 * threshold,
-      code_min, code_max, 1.0f / static_cast<float>(2 * threshold)};
-  auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (N <= 16)
-    err = launch<16>(x, w, out, M, K, N, rows, weight_bits, conv, step, st);
-  else if (N <= 32)
-    err = launch<32>(x, w, out, M, K, N, rows, weight_bits, conv, step, st);
-  else
-    err = launch<64>(x, w, out, M, K, N, rows, weight_bits, conv, step, st);
-  return static_cast<int>(err);
+  const int max_abs = (1 << (weight_bits - 1)) * rows * 255;
+  if (!recip_check.exact(step, max_abs))
+    return static_cast<int>(cudaErrorNotSupported);
+  const MergedConversion conv{step, 1.0f / step, nearest ? 0.5f : 0.0f,
+                              static_cast<float>(code_min),
+                              static_cast<float>(code_max)};
+  return static_cast<int>(gpq::launch_plane_gpq<gpq::SignedPlane>(
+      x, w, out, M, K, N, rows, weight_bits, conv, step,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -37,7 +37,7 @@
 // take the run-time loop in a scaled form, one code at a time, several
 // times slower (PERF.md times both at the ResNet's operands).
 
-#include "gpq_tile.cuh"
+#include "gpq_launch.cuh"
 #include "plane_mma.cuh"
 
 namespace {
@@ -113,8 +113,9 @@ cudaError_t launch_sar(const void* x, const void* w, void* out, int M,
     adc.recip = static_cast<unsigned>(((1ULL << 32) + level - 1) / level);
     adc.neg_level[0] = 0u - level;
   }
-  return gpq::launch_plane_gpq(x, w, out, M, K, N, rows, weight_bits, adc,
-                               scale, stream);
+  return gpq::launch_plane_gpq<gpq::BitPlanes>(x, w, out, M, K, N, rows,
+                                               weight_bits, adc, scale,
+                                               stream);
 }
 
 }  // namespace

@@ -40,7 +40,7 @@
 
 #include <algorithm>
 
-#include "gpq_tile.cuh"
+#include "gpq_launch.cuh"
 #include "plane_mma.cuh"
 
 namespace {
@@ -146,11 +146,11 @@ int gpq_matmul_launch(const void* x, const void* w, void* out, int M, int K,
   const auto st = static_cast<cudaStream_t>(stream);
   FlashShift2 shift2;
   if (flash_shift2(adc_bits, threshold, adc_codes - 1, nearest, &shift2))
-    return static_cast<int>(gpq::launch_plane_gpq(
+    return static_cast<int>(gpq::launch_plane_gpq<gpq::BitPlanes>(
         x, w, out, M, K, N, rows, weight_bits, shift2,
         adc_step / static_cast<float>(threshold >> adc_bits), st));
   const FlashTable table{adc_bits, threshold, adc_codes - 1, nearest};
-  return static_cast<int>(gpq::launch_plane_gpq(
+  return static_cast<int>(gpq::launch_plane_gpq<gpq::BitPlanes>(
       x, w, out, M, K, N, rows, weight_bits, table, adc_step, st));
 }
 

@@ -1,40 +1,48 @@
-// The per-plane GPQ kernel of B1 (gpq_matmul.cu) and B3
-// (cell_adc_gpq_matmul.cu) on the int8 tensor cores, for sm_90a.
+// The GPQ kernel of all three variants on the int8 tensor cores, for
+// sm_90a: B1 (gpq_matmul.cu), B2 (adder_tree_gpq_matmul.cu) and B3
+// (cell_adc_gpq_matmul.cu).
 //
 // For x [M, K] activation codes (int32 holding 0 .. 255) and w [K, N]
 // weight bytes (int8 codes or uint8 packed-plane bytes; the low
 // weight_bits are the code bits), each (16-row group g, plane b, output)
 // gets
 //
-//   pMAC = sum_{k in g} x[m, k] * bit_b(w[k, n]),   code = adc(pMAC)
+//   MAC = sum_{k in g} x[m, k] * plane_b(w[k, n]),   code = adc(MAC)
 //
-// and out[m, n] = scale * sum_g sum_b s_b 2^b code (s_b = -1 on the MSB
-// plane). `Adc` is the conversion: B1's flash, B3's SAR search.
+// and out[m, n] = scale * sum_g sum_b weight_b code. `Planes` says what
+// the planes are: B1's and B3's 8 unsigned bit planes (a pMAC each,
+// weight_b = s_b 2^b, s_b = -1 on the MSB plane), or B2's one signed
+// plane, the two's-complement code (its MAC is the merged value sum_b
+// s_b 2^b pMAC_b, weight 1). `Adc` is the conversion: B1's flash, B2's
+// merged conversion, B3's SAR search.
 //
 // What bounds it on an H100: the int32 x stream, read once (151 MB, about
 // 50 us at the ResNet's stage-0 conv at batch 256), and close behind it
 // the conversion: one code per (group, plane, output), 3.4 G per ResNet
-// forward, a few integer instructions each, on integer pipes that retire
-// 64 lanes per clock per SM. The plane MACs are 1/10 of the bytes' time at
-// the int8 tensor-core rate. What the design does about it:
+// forward for the per-plane variants (1/8 of that for B2), a few integer
+// instructions each, on integer pipes that retire 64 lanes per clock per
+// SM. The plane MACs are 1/10 of the bytes' time at the int8 tensor-core
+// rate. What the design does about it:
 //
-//   * one mma.m16n8k16 (u8 x u8 -> s32) per (row group, plane, 8
-//     outputs): a group of up to 16 rows is one k16 step, its missing
-//     rows zero in the weights (rows 4 and 8 are padded to 16 slots); up
-//     to 32 rows take two chained steps before the conversion. The 8
-//     planes' products are issued before their conversions, so the
-//     tensor cores' latency overlaps. Each lane holds the same (row,
-//     column) positions of every plane's accumulator, so it converts and
-//     adds s_b 2^b code into its own int32 sums, kept until one scaled
-//     store at the end. All 8 planes run, branch-free: planes at and
-//     above weight_bits have all-zero weights, whose code is 0;
+//   * one mma.m16n8k16 (u8 x u8, or u8 x s8 for B2's signed plane ->
+//     s32) per (row group, plane, 8 outputs): a group of up to 16 rows is
+//     one k16 step, its missing rows zero in the weights (rows 4 and 8
+//     are padded to 16 slots); up to 32 rows take two chained steps
+//     before the conversion. All planes' products are issued before their
+//     conversions, so the tensor cores' latency overlaps. Each lane holds
+//     the same (row, column) positions of every plane's accumulator, so
+//     it converts and adds weight_b code into its own int32 sums, kept
+//     until one scaled store at the end. All 8 bit planes run,
+//     branch-free: planes at and above weight_bits have all-zero weights,
+//     whose code is 0;
 //   * where the conversion allows (Adc::kPacked), two outputs share a
 //     register, a 16-bit half each, so one instruction converts or
 //     accumulates both; a group's sums are unpacked once per group;
 //   * the weights are staged in shared memory transposed and padded per
 //     group, [n][group * 16 + slot] bytes, so one 32-bit load gives a
 //     lane its 4 k-consecutive bytes of one column (its B fragment of
-//     every plane: (word >> b) & 0x01010101, two instructions);
+//     every bit plane: (word >> b) & 0x01010101, two instructions; of
+//     the signed plane: the word, sign-extended once when staged);
 //   * x goes global -> shared with cp.async, each lane copying exactly
 //     the 16-byte runs of int32 codes it reads back (rows l/4 and l/4+8
 //     at k 4t .. 4t+3, one m16n8k16 A register each, packed to bytes
@@ -50,10 +58,51 @@
 
 #pragma once
 
-#include "gpq_tile.cuh"
 #include "ptx.cuh"
 
 namespace gpq {
+
+// B1's and B3's planes: the 8 unsigned bit planes of the masked code
+// bits, weighted s_b 2^b.
+struct BitPlanes {
+  static constexpr int kPlanes = 8;
+  static __device__ __forceinline__ uint32_t staged(uint32_t u, int) {
+    return u;
+  }
+  static __device__ __forceinline__ uint32_t fragment(uint32_t word,
+                                                      int b) {
+    return (word >> b) & 0x01010101u;
+  }
+  static __device__ __forceinline__ void mma(int (&d)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t b) {
+    mma_u8(d, a0, a1, b);
+  }
+  static __device__ __forceinline__ int weight(int b, int weight_bits) {
+    return b == weight_bits - 1 ? -(1 << b) : (1 << b);
+  }
+};
+
+// B2's plane: the two's-complement code itself, for which sum_b s_b 2^b
+// bit_b(w) = w, so a group's product is its merged value. The masked
+// code bits u of each staged byte are sign-extended from bit
+// weight_bits - 1: (u ^ s) - s per byte, s = 2^(weight_bits - 1) (for u
+// < s that is u; else u - 2^weight_bits, mod 2^8).
+struct SignedPlane {
+  static constexpr int kPlanes = 1;
+  static __device__ __forceinline__ uint32_t staged(uint32_t u,
+                                                    int weight_bits) {
+    const uint32_t s4 = (1u << (weight_bits - 1)) * 0x01010101u;
+    return __vsub4(u ^ s4, s4);
+  }
+  static __device__ __forceinline__ uint32_t fragment(uint32_t word, int) {
+    return word;
+  }
+  static __device__ __forceinline__ void mma(int (&d)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t b) {
+    mma_u8s8(d, a0, a1, b);
+  }
+  static __device__ __forceinline__ int weight(int, int) { return 1; }
+};
 
 constexpr int kPlaneWarps = 4;
 constexpr int kPlaneThreads = 32 * kPlaneWarps;
@@ -79,21 +128,25 @@ __device__ __forceinline__ uint32_t pack_codes(uint4 v) {
 
 // Stage the weights of groups [g0, g0 + ng) as ws[n * kStride + slot]:
 // slot (g - g0) * 16 kS + s holds the low weight_bits of w[g rows + s, n0
-// + n], zero for s >= rows, k >= K or n0 + n >= N. With wvec (rows % 4 ==
+// + n] as Planes stages them, zero for s >= rows, k >= K or n0 + n >= N
+// (a zero byte stages as zero in both forms). With wvec (rows % 4 ==
 // N % 4 == 0, w 4-byte aligned) a task is a 4 x 4 byte block: four 32-bit
 // loads of 4 columns from 4 consecutive k rows, transposed with eight
 // byte permutes into 4 words of 4 k-consecutive bytes of one column;
 // consecutive lanes take consecutive slot quads, so the stores fall in
 // distinct banks. Otherwise each byte is loaded alone.
-template <int BN, int kS>
+template <int BN, int kS, class Planes>
 __device__ __forceinline__ void stage_plane_weights(
     uint8_t* ws, const uint8_t* __restrict__ w, int K, int N, int n0,
     int rows, int weight_bits, bool wvec, int g0, int ng) {
   constexpr int kGroupSlots = 16 * kS;
   constexpr int kStride = PlaneTile<BN>::kStride;
   const int quads = ng * kGroupSlots / 4;  // per column
+  const uint32_t mask = ((1u << weight_bits) - 1u) * 0x01010101u;
+  auto staged = [&](uint32_t word) {
+    return Planes::staged(word & mask, weight_bits);
+  };
   if (wvec) {
-    const uint32_t mask = ((1u << weight_bits) - 1u) * 0x01010101u;
     for (int idx = threadIdx.x; idx < BN / 4 * quads;
          idx += kPlaneThreads) {
       const int q = idx % quads;
@@ -113,13 +166,13 @@ __device__ __forceinline__ void stage_plane_weights(
       const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
       const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
       uint8_t* dst = ws + 4 * c * kStride + 4 * q;
-      *reinterpret_cast<uint32_t*>(dst) = __byte_perm(t0, t1, 0x5410) & mask;
+      *reinterpret_cast<uint32_t*>(dst) = staged(__byte_perm(t0, t1, 0x5410));
       *reinterpret_cast<uint32_t*>(dst + kStride) =
-          __byte_perm(t0, t1, 0x7632) & mask;
+          staged(__byte_perm(t0, t1, 0x7632));
       *reinterpret_cast<uint32_t*>(dst + 2 * kStride) =
-          __byte_perm(t2, t3, 0x5410) & mask;
+          staged(__byte_perm(t2, t3, 0x5410));
       *reinterpret_cast<uint32_t*>(dst + 3 * kStride) =
-          __byte_perm(t2, t3, 0x7632) & mask;
+          staged(__byte_perm(t2, t3, 0x7632));
     }
     return;
   }
@@ -134,11 +187,11 @@ __device__ __forceinline__ void stage_plane_weights(
       const int s = sl % kGroupSlots;
       const int k = (g0 + sl / kGroupSlots) * rows + s;
       if (s < rows && k < K && gn < N)
-        word |= static_cast<uint32_t>(weight_bits_of<false>(
-                    __ldg(&w[static_cast<size_t>(k) * N + gn]), weight_bits))
+        word |= static_cast<uint32_t>(
+                    __ldg(&w[static_cast<size_t>(k) * N + gn]))
                 << (8 * e);
     }
-    *reinterpret_cast<uint32_t*>(&ws[n * kStride + 4 * q]) = word;
+    *reinterpret_cast<uint32_t*>(&ws[n * kStride + 4 * q]) = staged(word);
   }
 }
 
@@ -146,13 +199,14 @@ __device__ __forceinline__ void stage_plane_weights(
 // left to itself, ptxas caps the registers at the occupancy that shared
 // memory allows (56 at BN = 16, 80 at BN = 64) and spills the 8 planes'
 // products.
-template <int BN, int kS, class Adc>
+template <int BN, int kS, class Planes, class Adc>
 __global__ void __launch_bounds__(kPlaneThreads, 4)
 plane_mma_kernel(const int32_t* __restrict__ x,
                  const uint8_t* __restrict__ w, float* __restrict__ out,
                  int M, int K, int N, int rows, int weight_bits, int vec,
                  int wvec, Adc adc, float scale) {
   constexpr int kNT = BN / 8;
+  constexpr int kPlanes = Planes::kPlanes;
   constexpr int kGroupSlots = 16 * kS;
   constexpr int kRing = kRingSteps / kS;  // groups in the ring
   constexpr int kChunk = PlaneTile<BN>::kSlots / kGroupSlots;  // groups
@@ -197,10 +251,9 @@ plane_mma_kernel(const int32_t* __restrict__ x,
       }
   };
 
-  int pw[8];  // s_b 2^b
+  int pw[kPlanes];
 #pragma unroll
-  for (int b = 0; b < 8; ++b)
-    pw[b] = b == weight_bits - 1 ? -(1 << b) : (1 << b);
+  for (int b = 0; b < kPlanes; ++b) pw[b] = Planes::weight(b, weight_bits);
 
   int acc[kNT][4];
 #pragma unroll
@@ -220,8 +273,9 @@ plane_mma_kernel(const int32_t* __restrict__ x,
     cp_async_commit();
     if (g % kChunk == 0) {
       __syncthreads();  // every warp is done with the previous chunk
-      stage_plane_weights<BN, kS>(ws, w, K, N, n0, rows, weight_bits,
-                                  wvec, g, min(kChunk, groups - g));
+      stage_plane_weights<BN, kS, Planes>(ws, w, K, N, n0, rows,
+                                          weight_bits, wvec, g,
+                                          min(kChunk, groups - g));
       __syncthreads();
     }
     cp_async_wait<kRing - 1>();
@@ -241,23 +295,23 @@ plane_mma_kernel(const int32_t* __restrict__ x,
       for (int s = 0; s < kS; ++s)
         wq[s] = *reinterpret_cast<const uint32_t*>(wg + 8 * j * kStride +
                                                    16 * s);
-      int d[8][4];
+      int d[kPlanes][4];
 #pragma unroll
-      for (int b = 0; b < 8; ++b) {
+      for (int b = 0; b < kPlanes; ++b) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) d[b][i] = 0;
 #pragma unroll
         for (int s = 0; s < kS; ++s)
-          mma_u8(d[b], a[s][0], a[s][1], (wq[s] >> b) & 0x01010101u);
+          Planes::mma(d[b], a[s][0], a[s][1], Planes::fragment(wq[s], b));
       }
       if constexpr (Adc::kPacked) {
         // Outputs (2k, 2k+1) in the halves of one register: a pMAC is
-        // below 2^13, and a group's sum of s_b 2^b code fits a signed
+        // below 2^13, and a group's sum of weight_b code fits a signed
         // half (the launch checks), so sum = hi 2^16 + lo with lo in
         // [-2^15, 2^15) unpacks once per group.
         uint32_t sum2[2] = {0u, 0u};
 #pragma unroll
-        for (int b = 0; b < 8; ++b)
+        for (int b = 0; b < kPlanes; ++b)
 #pragma unroll
           for (int k = 0; k < 2; ++k)
             sum2[k] += adc.code2(table, __byte_perm(d[b][2 * k],
@@ -272,7 +326,7 @@ plane_mma_kernel(const int32_t* __restrict__ x,
         }
       } else {
 #pragma unroll
-        for (int b = 0; b < 8; ++b)
+        for (int b = 0; b < kPlanes; ++b)
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             acc[j][i] += adc.code(table, d[b][i]) * pw[b];
@@ -302,7 +356,7 @@ plane_mma_kernel(const int32_t* __restrict__ x,
   }
 }
 
-template <int BN, int kS, class Adc>
+template <int BN, int kS, class Planes, class Adc>
 cudaError_t launch_plane_tile(const void* x, const void* w, void* out,
                               int M, int K, int N, int rows,
                               int weight_bits, const Adc& adc, float scale,
@@ -312,41 +366,41 @@ cudaError_t launch_plane_tile(const void* x, const void* w, void* out,
   const int wvec = rows % 4 == 0 && N % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 4 == 0;
   const dim3 grid((M + kPlaneBM - 1) / kPlaneBM, (N + BN - 1) / BN);
-  plane_mma_kernel<BN, kS, Adc><<<grid, kPlaneThreads, 0, stream>>>(
+  plane_mma_kernel<BN, kS, Planes, Adc><<<grid, kPlaneThreads, 0, stream>>>(
       static_cast<const int32_t*>(x), static_cast<const uint8_t*>(w),
       static_cast<float*>(out), M, K, N, rows, weight_bits, vec, wvec, adc,
       scale);
   return cudaGetLastError();
 }
 
-template <int kS, class Adc>
+template <int kS, class Planes, class Adc>
 cudaError_t launch_plane_ks(const void* x, const void* w, void* out, int M,
                             int K, int N, int rows, int weight_bits,
                             const Adc& adc, float scale,
                             cudaStream_t stream) {
   if (N <= 16)
-    return launch_plane_tile<16, kS>(x, w, out, M, K, N, rows, weight_bits,
-                                     adc, scale, stream);
+    return launch_plane_tile<16, kS, Planes>(x, w, out, M, K, N, rows,
+                                             weight_bits, adc, scale, stream);
   if (N <= 32)
-    return launch_plane_tile<32, kS>(x, w, out, M, K, N, rows, weight_bits,
-                                     adc, scale, stream);
-  return launch_plane_tile<64, kS>(x, w, out, M, K, N, rows, weight_bits,
-                                   adc, scale, stream);
+    return launch_plane_tile<32, kS, Planes>(x, w, out, M, K, N, rows,
+                                             weight_bits, adc, scale, stream);
+  return launch_plane_tile<64, kS, Planes>(x, w, out, M, K, N, rows,
+                                           weight_bits, adc, scale, stream);
 }
 
 // Launch plane_mma_kernel at the BN that covers N (up to 64; wider layers
 // take several column tiles) and the k16 steps a group takes (rows <= 32).
-template <class Adc>
+template <class Planes, class Adc>
 cudaError_t launch_plane_gpq(const void* x, const void* w, void* out, int M,
                              int K, int N, int rows, int weight_bits,
                              const Adc& adc, float scale,
                              cudaStream_t stream) {
   if (rows <= 16)
-    return launch_plane_ks<1>(x, w, out, M, K, N, rows, weight_bits, adc,
-                              scale, stream);
+    return launch_plane_ks<1, Planes>(x, w, out, M, K, N, rows, weight_bits,
+                                      adc, scale, stream);
   if (rows <= 32)
-    return launch_plane_ks<2>(x, w, out, M, K, N, rows, weight_bits, adc,
-                              scale, stream);
+    return launch_plane_ks<2, Planes>(x, w, out, M, K, N, rows, weight_bits,
+                                      adc, scale, stream);
   return cudaErrorInvalidValue;
 }
 

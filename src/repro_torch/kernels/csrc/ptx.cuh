@@ -1,5 +1,6 @@
-// Inline PTX of the per-plane kernels (plane_mma.cuh), for sm_90a: the
-// int8 tensor-core product and the asynchronous global -> shared copies.
+// Inline PTX of the tensor-core GPQ kernel (plane_mma.cuh), for sm_90a:
+// the int8 tensor-core products and the asynchronous global -> shared
+// copies.
 
 #pragma once
 
@@ -17,6 +18,15 @@ namespace gpq {
 __device__ __forceinline__ void mma_u8(int (&d)[4], uint32_t a0,
                                        uint32_t a1, uint32_t b) {
   asm("mma.sync.aligned.m16n8k16.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// mma_u8 with signed bytes in B (the same fragment layouts).
+__device__ __forceinline__ void mma_u8s8(int (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.u8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(b));

@@ -38,8 +38,8 @@ An explicit ``backend=`` request is always honored and any error it
 raises propagates; an implicit pick that raises the kernel's depth
 guard (``DepthGuardError``, a ``ValueError``) falls back to the scan and
 is recorded as "guard-fallback", and one whose operating point the
-kernel does not take (``KernelSpecError``: B1 and B3 at act_bits > 8 or
-over 32 active rows) as "spec-fallback". Build, launch and operand
+kernel does not take (``KernelSpecError``: B1, B2 and B3 at act_bits >
+8 or over 32 active rows) as "spec-fallback". Build, launch and operand
 errors always propagate. ``record_resolutions`` lets callers assert exactly
 which implementation ran.
 

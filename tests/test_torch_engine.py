@@ -197,13 +197,13 @@ def test_implicit_kernel_depth_guard_falls_back_and_is_recorded(monkeypatch):
         dispatch.dispatch(x, w, cfg, backend="cuda")  # explicit: loud
 
 
-@pytest.mark.parametrize("variant", ["p8t", "cell-adc"])
+@pytest.mark.parametrize("variant", ["p8t", "cell-adc", "adder-tree"])
 @pytest.mark.parametrize("kw", [dict(act_bits=9),
                                 dict(rows_per_group=64, rows_active=48)],
                          ids=["act_bits9", "rows48"])
 def test_implicit_kernel_spec_refusal_falls_back_and_is_recorded(
         monkeypatch, variant, kw):
-    """Where B1/B3 refuse the operating point on the card, an implicit
+    """Where B1/B2/B3 refuse the operating point on the card, an implicit
     pick runs the scan (recorded as "spec-fallback") and an explicit
     request raises, with no launch either way."""
     monkeypatch.setattr(dispatch, "_heuristic_backend",

@@ -8,8 +8,11 @@ oracle, bit for bit: every code, sum and product is an exact integer
 multiple of the ADC step in float32.
 """
 
+import ctypes
+import ctypes.util
 import functools
 import json
+import math
 import pathlib
 
 import jax
@@ -20,6 +23,7 @@ import torch
 
 from repro.core.engine import _grouped_planes as j_grouped_planes
 from repro.core import quant as jquant
+from repro.core.variants import merged_transfer_int as j_merged_transfer_int
 from repro.core.params import CIMConfig as JConfig
 from repro.kernels import ref as jref
 from repro.kernels.cim_mac import adder_tree_gpq_matmul as j_adder_tree_gpq
@@ -28,6 +32,7 @@ from repro.kernels.cim_mac import gpq_matmul as j_gpq_matmul
 from repro_torch.core.engine import _grouped_planes as t_grouped_planes
 from repro_torch.core.params import CIMConfig as TConfig
 from repro_torch.core.variants import merged_quant, merged_transfer_int
+from repro_torch.core import quant
 from repro_torch.core.quant import spread_slots
 from repro_torch.kernels import build, cim_mac, dispatch, ops
 from repro_torch.kernels import ref as tref
@@ -199,7 +204,7 @@ def test_build_finds_source_and_reports_missing_nvcc(monkeypatch):
         text = src.read_text()
         assert f"repro/kernels/cim_mac.py::{name}" in text
         assert 'extern "C"' in text and f"{name}_launch" in text
-        assert '#include "gpq_tile.cuh"' in text
+        assert '#include "gpq_launch.cuh"' in text
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")
@@ -216,7 +221,7 @@ def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
     src = tmp_path / "adder_tree_gpq_matmul.cu"
     before = build._lib_path(src)
     assert build._lib_path(src) == before
-    header = tmp_path / "gpq_tile.cuh"
+    header = tmp_path / "gpq_launch.cuh"
     header.write_text(header.read_text() + "// edited\n")
     assert build._lib_path(src) != before
 
@@ -287,21 +292,83 @@ def test_b2_b3_depth_guards_raise_at_the_reference_depth():
                 torch.zeros((k, 1), dtype=torch.int8), TConfig())
 
 
-def test_b2_integer_window_bounds_every_grid_point():
-    """B2 clamps merged values to a window outside which its code
-    saturates; the window's numerator fits int32 on the whole grid, and
-    clamping changes no code."""
-    for kw in GRID:
-        for mode in ("floor", "nearest"):
-            tc = TConfig(adc_mode=mode, **kw)
-            mq = merged_quant(tc)
-            threshold, m_lo, m_hi = cim_mac._merged_window(mq)
-            assert threshold / (1 << mq.bits_eff) == mq.step
-            edge = torch.tensor([m_lo, m_lo - 1000, m_hi, m_hi + 1000],
-                                dtype=torch.float32)
-            codes = merged_transfer_int(edge, tc).tolist()
-            assert codes == [mq.code_min, mq.code_min, mq.code_max,
-                             mq.code_max]
+_LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+_LIBM.fmaf.argtypes = [ctypes.c_float] * 3
+_LIBM.fmaf.restype = ctypes.c_float
+
+
+def _b2_kernel_codes(merged: np.ndarray, mq, nearest: bool) -> np.ndarray:
+    """adder_tree_gpq_matmul.cu MergedConversion::code in float32: r =
+    RN(1 / step), q0 = RN(m r), q = fma(fma(-q0, step, m), r, q0) (libm's
+    fmaf rounds once, as __fmaf_rn does), t = clamp(RN(q + half),
+    code_min, code_max), code = floor(t) (the kernel's magic-number int
+    <-> float conversions are exact in its range)."""
+    step = np.float32(mq.step)
+    recip = np.float32(1.0) / step
+    half = np.float32(0.5 if nearest else 0.0)
+    m = merged.astype(np.float32)
+    q0 = m * recip
+    q = np.array([_LIBM.fmaf(_LIBM.fmaf(-a, step, b), recip, a)
+                  for a, b in zip(q0.tolist(), m.tolist())],
+                 dtype=np.float32)
+    t = np.clip(q + half, np.float32(mq.code_min), np.float32(mq.code_max))
+    return np.floor(t).astype(np.int64)
+
+
+@pytest.mark.parametrize("mode", ["floor", "nearest"])
+@pytest.mark.parametrize("cutoff", [0.5, 0.25, 0.3, 0.35, 0.4])
+def test_b2_conversion_equals_both_merged_transfers(cutoff, mode):
+    """B2's float32 conversion (a reciprocal with one FMA correction, in
+    place of a divide) gives the port's and the reference's (eager)
+    merged_transfer_int code for every merged value in [m_min, m_max], on
+    and off the grid (steps that are not whole)."""
+    tc = TConfig(adc_mode=mode, cutoff=cutoff)
+    mq = merged_quant(tc)
+    assert float(np.float32(mq.step)) == mq.step  # the kernel's f32 step
+    merged = np.arange(mq.m_min, mq.m_max + 1, dtype=np.int32)
+    got = _b2_kernel_codes(merged, mq, mode == "nearest")
+    port = merged_transfer_int(torch.from_numpy(merged), tc).numpy()
+    ref = np.asarray(j_merged_transfer_int(jnp.asarray(merged),
+                                           JConfig(adc_mode=mode,
+                                                   cutoff=cutoff)))
+    np.testing.assert_array_equal(got, port)
+    np.testing.assert_array_equal(got, ref)
+
+
+def _b2_old_integer_code(m: int, mq, nearest: bool) -> int:
+    """The integer form B2's kernel used before its float32 conversion:
+    the exact floor((merged 2^(bits_eff+1) + nearest T) / 2T), T =
+    step 2^bits_eff, with merged clamped to the window where codes
+    saturate."""
+    m_lo = math.floor((mq.code_min - 1) * mq.step)
+    m_hi = math.ceil((mq.code_max + 1) * mq.step)
+    t = round(mq.step * (1 << mq.bits_eff))
+    q = ((min(max(m, m_lo), m_hi) * (2 << mq.bits_eff) + nearest * t)
+         // (2 * t))
+    return min(max(q, mq.code_min), mq.code_max)
+
+
+@pytest.mark.parametrize("cutoff,mode,merged,ref_code,old_code", [
+    (0.4, "floor", -19613, -2043, -2044),
+    (0.4, "nearest", -19637, -2045, -2046),
+    (0.35, "floor", 21247, 2043, 2042),
+    (0.35, "nearest", 21273, 2046, 2045),
+])
+def test_b2_old_integer_conversion_parts_from_the_reference(
+        cutoff, mode, merged, ref_code, old_code):
+    """Where the step is not whole, merged / step can land within half an
+    ulp of an integer: float32 rounds onto it, exact arithmetic does not.
+    The old integer form read one code off there; the kernel's float32
+    form reads the reference's."""
+    tc = TConfig(adc_mode=mode, cutoff=cutoff)
+    mq = merged_quant(tc)
+    m = np.array([merged], dtype=np.int32)
+    ref = np.asarray(j_merged_transfer_int(
+        jnp.asarray(m), JConfig(adc_mode=mode, cutoff=cutoff)))
+    assert ref.tolist() == [ref_code]
+    assert merged_transfer_int(torch.from_numpy(m), tc).tolist() == [ref_code]
+    assert _b2_kernel_codes(m, mq, mode == "nearest").tolist() == [ref_code]
+    assert _b2_old_integer_code(merged, mq, mode == "nearest") == old_code
 
 
 @pytest.mark.parametrize("variant,kernel", [
@@ -537,6 +604,34 @@ def test_off_grid_step_takes_the_table_and_the_scaled_sar(mode):
                         spec.adc_codes - 1, nearest) for p in pmacs] == want
 
 
+def _vsub4(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """__vsub4: per-byte a - b of uint32 words, each byte mod 2^8."""
+    out = np.zeros_like(a)
+    for e in range(4):
+        sh = np.uint32(8 * e)
+        out |= (((a >> sh) - (b >> sh)) & np.uint32(0xFF)) << sh
+    return out
+
+
+@pytest.mark.parametrize("weight_bits", range(1, 9))
+def test_b2_staged_bytes_are_twos_complement_codes(weight_bits):
+    """B2's weight staging (plane_mma.cuh SignedPlane::staged): the
+    masked code bits u of each byte of a word become (u ^ s) - s, s =
+    2^(weight_bits - 1), per byte; read as int8, every byte 0 .. 255
+    gives quant's two's-complement reading of its low weight_bits, from
+    uint8 packed bytes and int8 codes alike."""
+    raw = np.arange(256, dtype=np.uint8)
+    mask = np.uint32(((1 << weight_bits) - 1) * 0x01010101)
+    s4 = np.uint32((1 << (weight_bits - 1)) * 0x01010101)
+    words = raw.view(np.uint32)  # 4 bytes a word, lowest k lowest
+    staged = _vsub4((words & mask) ^ s4, np.full_like(words, s4))
+    got = staged.view(np.int8).astype(np.int32)
+    for w in (torch.from_numpy(raw), torch.from_numpy(raw.view(np.int8))):
+        want = quant.unslice_weights(
+            quant.bitslice_weights(w, weight_bits), weight_bits)
+        np.testing.assert_array_equal(got, want.numpy())
+
+
 @pytest.mark.parametrize("weight_bits", range(1, 9))
 def test_plane_fragment_bits_equal_unpacked_planes(weight_bits):
     """The weights staged as 32-bit words of 4 k-consecutive masked bytes
@@ -561,10 +656,12 @@ def test_plane_fragment_bits_equal_unpacked_planes(weight_bits):
                         planes[4 * q + e, b].numpy().astype(np.uint32))
 
 
-@pytest.mark.parametrize("kernel", ["gpq_matmul", "cell_adc_gpq_matmul"])
+@pytest.mark.parametrize("kernel", ["gpq_matmul", "cell_adc_gpq_matmul",
+                                    "adder_tree_gpq_matmul"])
 def test_per_plane_wrappers_raise_for_act_bits_over_8(kernel):
-    """Off the CPU, B1 and B3 refuse act_bits > 8 (their A operand is an
-    unsigned byte) before any build or launch."""
+    """Off the CPU, B1, B3 and B2 refuse act_bits > 8 (the tensor-core
+    kernel's A operand is an unsigned byte) before any build or
+    launch."""
     x = torch.empty((4, 16), dtype=torch.int32, device="meta")
     w = torch.empty((16, 4), dtype=torch.int8, device="meta")
     before = cim_mac.LAUNCHES[kernel]
