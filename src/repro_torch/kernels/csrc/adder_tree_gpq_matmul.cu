@@ -28,7 +28,7 @@
 // three operations and no branch (a divide carries a slow-path branch
 // per call, which serialises a lane's conversions). The host checks q
 // against true division for every merged value the kernel can meet
-// before it launches (RecipCheck below).
+// before it launches (recip_is_exact below).
 //
 // What bounds it on an H100: the int32 x stream, as for gpq_matmul.cu
 // (the same operands: 0.34 ms per ResNet forward at batch 256). The
@@ -76,44 +76,31 @@ struct MergedConversion {
   }
 };
 
-// The kernel's quotient, as the host computes it (no contraction: the
-// host build targets plain x86-64 SSE, and std::fma rounds once).
-float recip_quotient(float m, float step, float recip) {
-  const float q0 = m * recip;
-  return std::fma(std::fma(-q0, step, m), recip, q0);
-}
-
 // Whether the kernel's quotient is RN(m / step) for every |m| <=
-// max_abs, cached per (step, max_abs). Not seen to fail: about 7,000
-// steps (every significand from 1 to 2001, the all-ones ones, a sample up
-// to 2^24) over |m| <= 2^21 all pass.
-class RecipCheck {
- public:
-  bool exact(float step, int max_abs) {
-    std::lock_guard<std::mutex> lock(mu_);
-    for (const Entry& e : seen_)
-      if (e.step == step && e.max_abs == max_abs) return e.exact;
-    const float recip = 1.0f / step;
-    bool ok = true;
-    for (int m = -max_abs; ok && m <= max_abs; ++m) {
-      const float mf = static_cast<float>(m);
-      ok = recip_quotient(mf, step, recip) == mf / step;
-    }
-    seen_.push_back({step, max_abs, ok});
-    return ok;
-  }
-
- private:
-  struct Entry {
+// max_abs, computed on the host as the kernel computes it (no
+// contraction: the host build targets plain x86-64 SSE, and std::fma
+// rounds once); cached per (step, max_abs).
+bool recip_is_exact(float step, int max_abs) {
+  struct Checked {
     float step;
     int max_abs;
     bool exact;
   };
-  std::mutex mu_;
-  std::vector<Entry> seen_;
-};
-
-RecipCheck recip_check;
+  static std::mutex mu;
+  static std::vector<Checked> seen;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Checked& c : seen)
+    if (c.step == step && c.max_abs == max_abs) return c.exact;
+  const float recip = 1.0f / step;
+  bool exact = true;
+  for (int m = -max_abs; exact && m <= max_abs; ++m) {
+    const float mf = static_cast<float>(m);
+    const float q0 = mf * recip;
+    exact = std::fma(std::fma(-q0, step, mf), recip, q0) == mf / step;
+  }
+  seen.push_back({step, max_abs, exact});
+  return exact;
+}
 
 }  // namespace
 
@@ -121,7 +108,7 @@ extern "C" {
 
 // Launches on `stream` without synchronising; returns cudaGetLastError(),
 // or cudaErrorNotSupported where the reciprocal quotient is not float32's
-// correctly rounded one for some merged value (never seen).
+// correctly rounded one for some merged value.
 int adder_tree_gpq_matmul_launch(const void* x, const void* w, void* out,
                                  int M, int K, int N, int rows,
                                  int weight_bits, int code_min,
@@ -132,7 +119,7 @@ int adder_tree_gpq_matmul_launch(const void* x, const void* w, void* out,
       code_max > kCodeLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   const int max_abs = (1 << (weight_bits - 1)) * rows * 255;
-  if (!recip_check.exact(step, max_abs))
+  if (!recip_is_exact(step, max_abs))
     return static_cast<int>(cudaErrorNotSupported);
   const MergedConversion conv{step, 1.0f / step, nearest ? 0.5f : 0.0f,
                               static_cast<float>(code_min),
