@@ -64,7 +64,29 @@ file; it exits non-zero without either. Phases (each one fails the run):
               timed again at cutoff 0.3, a step that is not a whole
               number of pMACs (B1's code table, B3's scaled search; B2
               has one conversion path).
-  7. report   one JSON line listing every kernel of the port.
+  7. lm       slice 3's path: qwen2-0.5b at its published widths and
+              depth (24 layers, d_model 896, GQA 14/2 heads, d_ff 4864,
+              vocab 151936; random weights from torch.Generator seed 0)
+              under the paper policy (PAPER_OP_16ROWS). B1 == its plain
+              version (torch.equal) on the 7 projections' operands with
+              activation codes captured from the model at decode (M = 4)
+              and prefill (M = 512), floor and nearest; the cim-kernel
+              prefill and 8 decode steps with logits equal to the same
+              steps with every macro matmul forced through the scan twin;
+              168 ("p8t", "cuda") resolutions and B1 launches per decode
+              step; the card against the port's CPU path at depth 2 (full
+              width, float32 activations: bfloat16 logits tie), same
+              tokens under fp and cim-kernel;
+              ServeEngine.generate at batch 4, prompt 128 (MarkovLM), 32
+              new tokens under fp (planned int8), cim-exact and cim-kernel
+              (prefill ms, decode ms per step, tokens/s on the host clock,
+              the first 9 cim-kernel tokens equal to the checked run's);
+              examples/serve_cim.py's five requests through the
+              ContinuousBatcher under cim-kernel; B1's time per launch at
+              the 14 LM operands (as phase 6) beside its bound; one decode
+              step under torch.profiler.
+  8. report   one JSON line listing every kernel of the port and its
+              launches on each path.
 
 The last line is {"ok": true, "device": {...}}.
 """
@@ -72,6 +94,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import json
 import os
@@ -92,6 +115,11 @@ BATCH = 256
 N_BATCHES = 4
 MACRO_CONVS = 14  # per forward: stem and fc stay digital
 CALIBRATION_DIR = ROOT / "results" / "calibration"
+LM_ARCH = "qwen2_0_5b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 32
+LM_SCAN_STEPS = 8  # decode steps held to the scan twin
+LM_PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+LM_SCHEDULE = ((4, 6), (8, 4), (3, 8), (6, 5), (5, 7))  # serve_cim.py's
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,6 +230,8 @@ def phase_device():
         ) from e
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 GEMMs reduce in float32, as the CPU path does.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -747,6 +777,356 @@ def phase_timings(ops, spec):
     return rows
 
 
+def lm_cfg(mode: str, **kw):
+    """qwen2-0.5b's published CONFIG under ``mode`` at the paper point."""
+    from repro_torch.configs.base import CIMPolicy, get_config
+    from repro_torch.core.params import PAPER_OP_16ROWS
+
+    cfg = get_config(LM_ARCH)
+    if mode != "fp":
+        cfg = cfg.replace(cim=CIMPolicy(mode=mode, cim=PAPER_OP_16ROWS))
+    return cfg.replace(**kw)
+
+
+def scan_twin(cfg):
+    """``cfg`` with every macro matmul through the scan twin: on a CUDA
+    device the heuristic sends plans without unpacked planes (stacked LM
+    plans have none) to B1, so the scan is requested explicitly, through
+    an engine backend registered here."""
+    from repro_torch.core import engine
+    from repro_torch.kernels import dispatch
+
+    if "scan-twin" not in engine.backend_names():
+        engine.register_backend("scan-twin", engine.quantized_backend(
+            lambda x, plan, spec, gen: dispatch.dispatch(
+                x, plan.codes, spec, backend="scan", planes=plan.planes)))
+    return cfg.replace(cim=dataclasses.replace(cfg.cim, mode="cim",
+                                               backend="scan-twin"))
+
+
+@contextlib.contextmanager
+def capture_b1(n: int):
+    """The first ``n`` (x codes, w codes) operands B1's wrapper gets."""
+    from repro_torch.kernels import ops
+
+    real = ops.cim_matmul_kernel
+    got = []
+
+    def rec(x, w, spec):
+        if len(got) < n:
+            got.append((x, w))
+        return real(x, w, spec)
+
+    ops.cim_matmul_kernel = rec
+    try:
+        yield got
+    finally:
+        ops.cim_matmul_kernel = real
+
+
+def _tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_numel(v) for v in tree.values())
+    return tree.numel()
+
+
+def lm_steps(params, cfg, prompts, steps: int, on_step=None):
+    """Prefill, then ``steps`` greedy decode steps: the logits of each.
+    ``on_step(i, fn)`` wraps each step (i = 0 is the prefill)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    b, s = prompts.shape
+    caches = transformer.init_caches(cfg, b, s + steps + 1, device="cuda")
+    run = on_step or (lambda i, fn: fn())
+    out = []
+    with torch.no_grad():
+        logits, _ = run(0, lambda: transformer.prefill(params, prompts,
+                                                       caches, cfg))
+        out.append(logits)
+        for i in range(steps):
+            tok = logits.argmax(-1)
+            logits, _ = run(i + 1, lambda tok=tok, i=i: transformer.decode_step(
+                params, tok, s + i, caches, cfg))
+            out.append(logits)
+    return out
+
+
+def host_ms(fn):
+    """(result, ms) of ``fn()`` on the host clock, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_lm():
+    """Slice 3: qwen2-0.5b served through B1 (see the module docstring).
+    Returns (launches, max |err|, timings) for the report."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import cim_mac, dispatch
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import (ContinuousBatcher, Request,
+                                          ServeEngine)
+
+    cfg_k = lm_cfg("cim-kernel")
+    spec = cfg_k.cim.cim
+    per_step = cfg_k.n_layers * len(LM_PROJECTIONS)
+    t0 = time.perf_counter()
+    params = transformer.init(0, cfg_k, device="cuda")
+    planned = engine.plan_params(params, policy=cfg_k.cim)
+    torch.cuda.synchronize()
+    n = _tree_numel(params)
+    want_n = (cfg_k.param_count()
+              + (cfg_k.padded_vocab - cfg_k.vocab_size) * cfg_k.d_model)
+    if n != want_n:
+        raise AssertionError(f"{n} parameters, want {want_n}")
+    log(f"[lm] {cfg_k.name}: {n / 1e6:.1f} M parameters (vocab padded to "
+        f"{cfg_k.padded_vocab}), {cfg_k.n_layers} layers, initialised and "
+        f"planned on the card in {time.perf_counter() - t0:.1f} s")
+    prompts = torch.from_numpy(MarkovLM(cfg_k.vocab_size, seed=0).sample(
+        LM_BATCH, LM_PROMPT - 1, seed=0)).long().cuda()
+
+    # B1 against its plain version on the model's own operands.
+    caches = transformer.init_caches(cfg_k, LM_BATCH, LM_PROMPT + 2,
+                                     device="cuda")
+    with torch.no_grad():
+        with capture_b1(len(LM_PROJECTIONS)) as pre:
+            logits, _ = transformer.prefill(planned, prompts, caches, cfg_k)
+        with capture_b1(len(LM_PROJECTIONS)) as dec:
+            transformer.decode_step(planned, logits.argmax(-1), LM_PROMPT,
+                                    caches, cfg_k)
+    ops = [(f"prefill {p}", x, w) for p, (x, w) in zip(LM_PROJECTIONS, pre)]
+    ops += [(f"decode {p}", x, w) for p, (x, w) in zip(LM_PROJECTIONS, dec)]
+    max_err = 0.0
+    for name, x, w in ops:
+        m = LM_BATCH * (LM_PROMPT if name.startswith("prefill") else 1)
+        if x.shape[0] != m or x.dtype != torch.int32 or w.dtype != torch.int8:
+            raise AssertionError(f"{name}: operand {tuple(x.shape)} "
+                                 f"{x.dtype} x {tuple(w.shape)} {w.dtype}")
+        for mode in ("floor", "nearest"):
+            cfg = spec.replace(adc_mode=mode)
+            want = cim_mac.gpq_matmul_plain(x, w, cfg)
+            got = cim_mac.gpq_matmul(x, w, cfg)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            if not torch.equal(got, want):
+                raise AssertionError(f"gpq_matmul != plain at LM {name} "
+                                     f"{mode}: max |err| {err}")
+    log(f"[lm] gpq_matmul == plain (torch.equal) on the {len(ops)} LM "
+        f"operands, floor and nearest: " + ", ".join(
+            f"{nm} [{x.shape[0]}, {x.shape[1]}]x[{w.shape[0]}, "
+            f"{w.shape[1]}]" for nm, x, w in ops))
+
+    # The kernel path against the scan twin, step by step.
+    resolutions, launches = [], []
+
+    def counted(i, fn):
+        cim_mac.LAUNCHES.clear()
+        with dispatch.record_resolutions() as res:
+            out = fn()
+        resolutions.append(collections.Counter(
+            (r.key.variant, r.key.backend, r.source) for r in res))
+        launches.append(cim_mac.LAUNCHES["gpq_matmul"])
+        return out
+
+    t0 = time.perf_counter()
+    kern = lm_steps(planned, cfg_k, prompts, LM_SCAN_STEPS, counted)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    for i, (res, nl) in enumerate(zip(resolutions, launches)):
+        if res != {("p8t", "cuda", "explicit"): per_step} or nl != per_step:
+            raise AssertionError(f"step {i}: resolutions {dict(res)}, "
+                                 f"{nl} B1 launches; want {per_step}")
+    t0 = time.perf_counter()
+    cfg_s = scan_twin(cfg_k)
+    with dispatch.record_resolutions() as res:
+        scan = lm_steps(planned, cfg_s, prompts, LM_SCAN_STEPS)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    kinds = {(r.key.variant, r.key.backend, r.source) for r in res}
+    if kinds != {("p8t", "scan", "explicit")}:
+        raise AssertionError(f"the scan twin ran {kinds}")
+    for i, (a, b) in enumerate(zip(kern, scan)):
+        if not (torch.equal(a, b) and torch.isfinite(a).all()):
+            d = (a.float() - b.float()).abs().max().item()
+            raise AssertionError(f"step {i}: cim-kernel logits != scan "
+                                 f"twin's ({d})")
+    kern_toks = torch.stack([lg.argmax(-1) for lg in kern], 1).cpu().numpy()
+    log(f"[lm] prefill + {LM_SCAN_STEPS} decode steps: cim-kernel logits == "
+        f"scan twin's (torch.equal) at every step; {per_step} explicit "
+        f"(p8t, cuda) resolutions and {per_step} B1 launches per step "
+        f"(prefill and each decode step); {t_kern:.1f} s through B1, "
+        f"{t_scan:.1f} s through the scan")
+
+    # The card against the port's CPU path, full width at depth 2, in
+    # float32: bfloat16 logits of 152k random-weight tokens tie within one
+    # bfloat16 step, so there the two sum orders pick different tokens.
+    cfg2 = lm_cfg("fp", n_layers=2)
+    p2 = transformer.init(0, cfg2, device="cuda")
+    p2_cpu = convert.to_torch(p2, device="cpu")
+    for mode in ("fp", "cim-kernel"):
+        c2 = lm_cfg(mode, n_layers=2, activation_dtype="float32")
+        kw = dict(max_len=LM_PROMPT + 9, batch=LM_BATCH, plan=mode != "fp")
+        dev = ServeEngine(p2, c2, device="cuda", **kw).generate(prompts, 8)
+        host = ServeEngine(p2_cpu, c2, device="cpu", **kw).generate(
+            prompts.cpu(), 8)
+        if not np.array_equal(dev, host):
+            raise AssertionError(f"{mode}: card tokens {dev.tolist()} != "
+                                 f"CPU tokens {host.tolist()} at depth 2")
+        log(f"[lm] card == CPU path at depth 2, full width, float32 "
+            f"activations, {mode}: the same 8 greedy tokens for each of "
+            f"{LM_BATCH} prompts")
+    del p2, p2_cpu
+
+    # ServeEngine.generate per mode, on the host clock.
+    gen_launches = 0
+    for mode in ("fp", "cim-exact", "cim-kernel"):
+        cfg = lm_cfg(mode)
+        # fp plans int8 weight-only; the CIM modes serve the planned tree.
+        eng = ServeEngine(planned if mode != "fp" else params, cfg,
+                          max_len=LM_PROMPT + LM_GEN + 1, batch=LM_BATCH,
+                          plan=mode == "fp")
+        eng.generate(prompts, 2)  # warm
+        cim_mac.LAUNCHES.clear()
+        toks, total_ms = host_ms(lambda eng=eng: eng.generate(prompts,
+                                                              LM_GEN))
+        launched = cim_mac.LAUNCHES["gpq_matmul"]
+        _, pre_ms = host_ms(lambda eng=eng: eng._prefill(prompts))
+        dec_ms = (total_ms - pre_ms) / (LM_GEN - 1)
+        if toks.shape != (LM_BATCH, LM_GEN) or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{mode}: bad tokens {toks.shape}")
+        want = per_step * LM_GEN if mode == "cim-kernel" else 0
+        if launched != want:
+            raise AssertionError(f"{mode}: {launched} B1 launches in "
+                                 f"generate, want {want}")
+        if mode == "cim-kernel":
+            gen_launches = launched
+            if not np.array_equal(toks[:, :LM_SCAN_STEPS + 1], kern_toks):
+                raise AssertionError("generate's tokens != the checked run's")
+        log(f"[lm] generate {mode:10s} batch {LM_BATCH}, prompt {LM_PROMPT}, "
+            f"{LM_GEN} new tokens: {total_ms:.2f} ms, "
+            f"{LM_BATCH * LM_GEN / total_ms * 1e3:.2f} tokens/s; prefill "
+            f"{pre_ms:.3f} ms, decode {dec_ms:.3f} ms per step (host clock)")
+        del eng
+
+    # examples/serve_cim.py's schedule through the continuous batcher.
+    eng = ServeEngine(planned, cfg_k, max_len=96, batch=2)
+    batcher = ContinuousBatcher(eng, eos_token=-1)
+    rng = np.random.default_rng(0)
+    for rid, (plen, gen) in enumerate(LM_SCHEDULE):
+        batcher.submit(Request(rid=rid, prompt=rng.integers(
+            0, cfg_k.vocab_size, plen), max_new=gen))
+    t0 = time.perf_counter()
+    done = batcher.run_until_done()
+    secs = time.perf_counter() - t0
+    got = {r.rid: len(r.generated) for r in done}
+    if got != {i: g for i, (_, g) in enumerate(LM_SCHEDULE)}:
+        raise AssertionError(f"continuous batcher completed {got}")
+    log(f"[lm] continuous batcher, cim-kernel, 2 slots: {len(done)} "
+        f"requests, {sum(got.values())} tokens in {secs:.2f} s")
+    del eng, batcher
+
+    timings = lm_timings(ops, spec, cfg_k.n_layers)
+    lm_profile(planned, cfg_k, prompts)
+    return gen_launches, max_err, timings
+
+
+def lm_timings(ops, spec, n_layers: int) -> dict:
+    """B1 per LM operand (as phase 6), and per decode step and per
+    prefill: the 7 launches of a layer times ``n_layers``."""
+    from repro_torch.kernels import cim_mac
+
+    sums = {"prefill": [0.0] * 4, "decode": [0.0] * 4}
+    by = {"prefill": [0, 0], "decode": [0, 0]}
+    for name, x, w in ops:
+        m, k = x.shape
+        n = w.shape[1]
+        ms = cuda_time_ms(lambda x=x, w=w: cim_mac.gpq_matmul(x, w, spec))
+        device_ms = graph_time_ms(
+            lambda x=x, w=w: cim_mac.gpq_matmul(x, w, spec))
+        plain_ms = cuda_time_ms(
+            lambda x=x, w=w: cim_mac.gpq_matmul_plain(x, w, spec))
+        nbytes = m * k * x.element_size() + k * n * w.element_size() + m * n * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * m * k * n * spec.weight_bits / INT8_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        kind = name.split()[0]
+        for i, v in enumerate((ms, plain_ms, bound, device_ms)):
+            sums[kind][i] += v * n_layers
+        by[kind][bytes_ms >= ops_ms] += 1
+        what = "bytes" if bytes_ms >= ops_ms else "operations"
+        log(f"[lm-timing] gpq_matmul {name:13s} [{m}, {k}]x[{k}, {n}]: "
+            f"kernel {ms:.4f} ms over back-to-back wrapper calls "
+            f"({device_ms:.4f} device ms in a graph), plain {plain_ms:.4f} "
+            f"ms, bound {bound:.4f} ms ({what}; {nbytes / 1e6:.2f} MB, "
+            f"{2 * m * k * n * spec.weight_bits / 1e9:.3f} G int8 ops)")
+    out = {}
+    for kind, (ms, plain_ms, bound, device_ms) in sums.items():
+        bound_by = "bytes" if by[kind][1] >= by[kind][0] else "operations"
+        out[kind] = (ms, plain_ms, bound, bound_by, device_ms)
+        log(f"[lm-timing] gpq_matmul per {kind} ({n_layers} layers x "
+            f"{len(LM_PROJECTIONS)} launches): kernel {ms:.4f} ms over "
+            f"back-to-back wrapper calls ({device_ms:.4f} device ms in a "
+            f"graph), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bound_by})")
+    return out
+
+
+def lm_profile(planned, cfg, prompts):
+    """One cim-kernel decode step under torch.profiler (reported, never
+    failed, as phase 4's window)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer
+
+    b, s = prompts.shape
+    caches = transformer.init_caches(cfg, b, s + 3, device="cuda")
+    with torch.no_grad():
+        logits, _ = transformer.prefill(planned, prompts, caches, cfg)
+        tok = logits.argmax(-1)
+        transformer.decode_step(planned, tok, s, caches, cfg)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            transformer.decode_step(planned, tok, s + 1, caches, cfg)
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    if not rows:
+        log(f"[lm-profile] no device time in the trace ({window_ms:.2f} ms "
+            f"window): not attributed")
+        return
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"[lm-profile] one cim-kernel decode step at batch {b}: "
+        f"{window_ms:.3f} ms window (host clock), device busy {busy:.3f} ms "
+        f"= {100 * busy / window_ms:.1f}% of it; top 10 device ops:")
+    for ms, count, key in rows[:10]:
+        log(f"[lm-profile]   {ms:9.4f} ms {100 * ms / busy:5.1f}% "
+            f"x{count:<4d} {key[:100]}")
+
+
 def main() -> int:
     import torch
 
@@ -768,9 +1148,11 @@ def main() -> int:
     phase_profile(params, bn, batches[0][0])
     launches = phase_variants(params, bn, batches, slice1_logits)
     timings = phase_timings(ops, spec)
+    lm_launches, lm_err, lm_t = phase_lm()
 
     report = {"kernels": [{
         "name": kern.name,
+        "path": "resnet forward (14 macro convs)",
         "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{kern.name}.cu",
         "replaces": kern.replaces,
@@ -783,6 +1165,26 @@ def main() -> int:
         "bound_by": timings[kern.name][3],
         "library_ms": None,
     } for kern in KERNELS]}
+    b1 = KERNELS[0]
+    report["kernels"].append({
+        "name": b1.name,
+        "path": f"{LM_ARCH} decode step (24 layers x 7 projections)",
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{b1.name}.cu",
+        "replaces": b1.replaces,
+        "launches": lm_launches,
+        "max_abs_err": lm_err,
+        "ms": lm_t["decode"][0],
+        "device_ms": lm_t["decode"][4],
+        "plain_ms": lm_t["decode"][1],
+        "bound_ms": lm_t["decode"][2],
+        "bound_by": lm_t["decode"][3],
+        "library_ms": None,
+        "prefill_ms": lm_t["prefill"][0],
+        "prefill_device_ms": lm_t["prefill"][4],
+        "prefill_plain_ms": lm_t["prefill"][1],
+        "prefill_bound_ms": lm_t["prefill"][2],
+    })
     log(json.dumps(report))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,12 @@ each layer at its calibrated operating point and macro variant.
 The mode names ('cim-exact', 'cim', 'cim-kernel') resolve to the same
 backends, so a ``CIMPolicy.mode`` string is a valid backend key.
 
-The one-shot straight-through (QAT) matmul comes with training
-(ROADMAP slice 6).
+``plan_params`` lifts planning over whole parameter trees (used by
+``serve.quantized`` and ``serve.engine.ServeEngine``), unifying the CIM
+path and the digital int8 weight-only serving path behind one
+representation. ``matmul`` is the one-shot plan-and-execute forward for
+weights that are not planned ahead; its straight-through (QAT) backward
+comes with training (ROADMAP slice 6).
 """
 
 from __future__ import annotations
@@ -109,6 +113,21 @@ class PlannedWeights:
             return self.w.to(dtype)
         return self.dequantized(dtype)
 
+    def layer(self, i: int) -> "PlannedWeights":
+        """The plan of layer ``i`` of a stacked [U, K, N] plan: a view of
+        each field's slice ``i``, as the JAX package's ``lax.scan`` over
+        stacked units slices the plan's pytree. Stacked plans carry no
+        planes or slots (those are built for 2-D weights only)."""
+        if self.planes is not None or self.slots is not None:
+            raise ValueError("a plan with planes or slots is not stacked")
+        return dataclasses.replace(
+            self,
+            codes=self.codes[i],
+            scale=self.scale[i],
+            colsum=None if self.colsum is None else self.colsum[i],
+            w=None if self.w is None else self.w[i],
+        )
+
 
 # Above this reduction depth the behavioral planes are stored bit-packed
 # (8 planes per byte).
@@ -121,17 +140,19 @@ SLOTS_MAX_ELEMS = 1 << 22
 
 
 def _grouped_planes(
-    codes: torch.Tensor, cfg: CIMConfig, packed: bool = False
+    codes: torch.Tensor, cfg: CIMConfig, packed: bool = False,
+    rows: int | None = None,
 ) -> torch.Tensor:
     """[K, N] signed codes -> grouped bit planes.
 
     Group g holds rows g*rows..(g+1)*rows of every bit plane, zero-padded
     along K. packed=False: [G, B, rows, N] int8 0/1 planes. packed=True:
     [G, rows, N] uint8 whose bit b is plane b (the low ``weight_bits``
-    two's-complement bits of the code).
+    two's-complement bits of the code). ``rows`` overrides the grouping
+    row count (a layer's calibrated ``rows_active``).
     """
     k, n = codes.shape
-    rows = cfg.rows_active
+    rows = rows or cfg.rows_active
     g = -(-k // rows)
     if packed:
         mask = (1 << cfg.weight_bits) - 1
@@ -170,6 +191,8 @@ def plan_weights(
     policy: CIMPolicyLike | None = None,
     *,
     keep_fp: bool = True,
+    with_planes: bool | None = None,
+    group_rows: int | None = None,
 ) -> PlannedWeights:
     """Precompute the weight-stationary state for ``execute``.
 
@@ -177,17 +200,21 @@ def plan_weights(
       w: [..., K, N] float weights (last axis = output channels).
       cfg: macro operating point; defaults to ``policy.cim`` or the
         paper operating point.
-      policy: optional CIMPolicy. Under the behavioral mode ("cim") the
-        plan keeps the grouped bit planes of a 2-D weight, bit-packed
+      policy: optional CIMPolicy; sets the default of ``with_planes``.
+      keep_fp: retain the original float weights (False: the digital
+        int8 serving form).
+      with_planes: keep the grouped bit planes of a 2-D weight, bit-packed
         from K >= PACK_PLANES_MIN_K, and its spread-slot operand when the
         packing is feasible and the layer has at most SLOTS_MAX_ELEMS
-        weights.
-      keep_fp: retain the original float weights.
+        weights. Default: under the behavioral mode ("cim") only.
+      group_rows: group the planes at this row count instead of
+        ``cfg.rows_active`` (a layer's calibrated ``rows_active``).
     """
     if cfg is None:
         cfg = policy.cim if policy is not None else CIMConfig()
     mode = policy.mode if policy is not None else None
-    with_planes = mode in ("cim", "behavioral")
+    if with_planes is None:
+        with_planes = mode in ("cim", "behavioral")
 
     bits = cfg.weight_bits
     # Quantize in f32 regardless of the storage dtype of w.
@@ -202,14 +229,13 @@ def plan_weights(
                 f"{tuple(qw.codes.shape)}"
             )
         k, n = qw.codes.shape
+        rows = group_rows or cfg.rows_active
         packed = k >= PACK_PLANES_MIN_K and bits <= 8
-        planes = _grouped_planes(qw.codes, cfg, packed=packed)
+        planes = _grouped_planes(qw.codes, cfg, packed=packed, rows=rows)
         if k * n <= SLOTS_MAX_ELEMS and quant.slot_spec(
-            cfg.rows_active, cfg.act_bits, bits
+            rows, cfg.act_bits, bits
         ) is not None:
-            slots = quant.spread_slots(
-                qw.codes, cfg.rows_active, cfg.act_bits, bits
-            )
+            slots = quant.spread_slots(qw.codes, rows, cfg.act_bits, bits)
     return PlannedWeights(
         codes=codes,
         scale=qw.scale.to(torch.float32),
@@ -332,6 +358,15 @@ def _cuda_int(x_codes, plan, cfg, generator):
     )
 
 
+# The built-in execution backends. Serving a calibration registers it
+# under the policy's backend name, never over one of these.
+BUILTIN_BACKENDS = frozenset({"fp", "exact", "behavioral", "cuda"})
+
+
+def is_builtin_backend(name: str) -> bool:
+    return name in BUILTIN_BACKENDS or name in _MODE_ALIASES
+
+
 register_backend("fp", _fp_backend)
 register_backend("exact", quantized_backend(_exact_int))
 register_backend("behavioral", quantized_backend(_behavioral_int))
@@ -367,35 +402,95 @@ def execute(
     return y
 
 
+def matmul(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    policy: CIMPolicyLike | None,
+    *,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """One-shot plan+execute for weights that are not planned ahead (the
+    forward of the JAX package's ``engine.matmul``). Its straight-through
+    backward is training's (ROADMAP slice 6): a call that autograd would
+    differentiate raises."""
+    if policy is None or policy.mode == "fp":
+        return x @ w
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "the straight-through backward of engine.matmul comes with "
+            "training, slice 6 of ROADMAP.md; run under torch.no_grad()")
+    plan = plan_weights(w, policy=policy)
+    return execute(x, plan, policy, generator=generator)
+
+
 # ---------------------------------------------------------------------------
 # Whole-tree planning
 # ---------------------------------------------------------------------------
 
-# The leaf key of a linear layer's [K, N] weight (the port's models'
-# only matmul weight; conv filters are planned by models.resnet).
-_WEIGHT_KEY = "w"
+# Leaves that are never weight-planned.
+DEFAULT_EXEMPT_KEYS = frozenset(
+    {"scale", "bias", "b", "table", "a_log", "d_skip", "conv_w",
+     "conv_b", "mu_x", "decay_w0", "bonus_u", "pos_emb"}
+)
+# Modules kept high-precision by design: the MoE router and the
+# shared-expert gate.
+DEFAULT_EXEMPT_MODULES = frozenset({"router", "shared_gate"})
+# Keys carrying matmul weight leaves ([K, N] linears, [E, K, N] banks,
+# [U, K, N] stacked units).
+DEFAULT_WEIGHT_KEYS = frozenset({"w", "gate", "up", "down"})
 
 
 def plan_params(
     params: Any,
     cfg: CIMConfig | None = None,
     policy: CIMPolicyLike | None = None,
+    *,
+    keep_fp: bool | None = None,
+    with_planes: bool | None = None,
+    calibration: Any | None = None,
 ) -> Any:
-    """Rewrite every 2-D ``w`` leaf of a nested dict into a
-    PlannedWeights; other leaves pass through."""
+    """Rewrite every eligible weight leaf of a nested dict into a
+    PlannedWeights; other leaves pass through.
+
+    A leaf is eligible when its key is one of DEFAULT_WEIGHT_KEYS (and
+    not of DEFAULT_EXEMPT_KEYS), it is a tensor of two or more dims, and
+    no enclosing module is one of DEFAULT_EXEMPT_MODULES. Stacked leaves
+    ([U, K, N]) are planned per slice of the leading dims, without planes.
+
+    One transform serves both serving representations: digital int8
+    weight-only (policy None or mode 'fp': the plans drop the float
+    weights) and CIM execution (other modes: the plans keep them, so
+    digitally-exempt matmuls stay exact). ``calibration`` (a
+    ``core.calibrate.CalibrationResult``) groups each 2-D layer's planes
+    at its calibrated ``rows_active``, looked up by [K, N] shape, and
+    turns planes on.
+    """
     if cfg is None:
         cfg = policy.cim if policy is not None else CIMConfig()
-    # An fp plan serves the dequantized int8 weights: no float copy.
-    keep_fp = policy is not None and policy.mode != "fp"
+    mode = policy.mode if policy is not None else "fp"
+    if keep_fp is None:
+        keep_fp = mode != "fp"
+    if with_planes is None:
+        with_planes = mode in ("cim", "behavioral") or calibration is not None
+
+    def rows_for(shape) -> int | None:
+        if calibration is None or len(shape) != 2:
+            return None
+        lc = calibration.layer_for(shape[-2], shape[-1])
+        return None if lc is None else lc.spec.rows_active
 
     def walk(node):
         out = {}
         for k, v in node.items():
             if isinstance(v, dict):
-                out[k] = walk(v)
-            elif k == _WEIGHT_KEY and isinstance(v, torch.Tensor) \
-                    and v.ndim == 2:
-                out[k] = plan_weights(v, cfg, policy, keep_fp=keep_fp)
+                out[k] = v if k in DEFAULT_EXEMPT_MODULES else walk(v)
+            elif (k in DEFAULT_WEIGHT_KEYS and k not in DEFAULT_EXEMPT_KEYS
+                  and isinstance(v, torch.Tensor) and v.ndim >= 2):
+                out[k] = plan_weights(
+                    v, cfg, policy, keep_fp=keep_fp,
+                    with_planes=with_planes and v.ndim == 2,
+                    group_rows=rows_for(v.shape),
+                )
             else:
                 out[k] = v
         return out

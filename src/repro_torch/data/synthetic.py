@@ -1,15 +1,57 @@
-"""Deterministic synthetic CIFAR-shaped dataset (numpy only).
+"""Deterministic synthetic datasets (numpy only).
 
-No datasets ship offline, so the ResNet is trained and evaluated on
-class-conditional frequency/phase patterns plus Gaussian noise at
-32x32x3: learnable, and quantization-sensitive enough to expose ADC
-clipping. Same seeds give the same images as the JAX package's
-``repro.data.synthetic.SyntheticCIFAR``.
+No datasets ship offline, so the models are driven by structured
+synthetic tasks. Same seeds give the same data as the JAX package's
+``repro.data.synthetic``.
+
+LM stream  : order-2 Markov chain over the vocab; a model must learn
+             its transition structure.
+CIFAR-like : class-conditional frequency/phase patterns plus Gaussian
+             noise at 32x32x3: learnable, and quantization-sensitive
+             enough to expose ADC clipping.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+class MarkovLM:
+    """Order-2 Markov chain token stream with a fixed random kernel."""
+
+    def __init__(self, vocab_size: int, seed: int = 0,
+                 branching: int = 8):
+        self.vocab = vocab_size
+        rng = np.random.default_rng(seed)
+        # Sparse transition table: each (a, b) context allows `branching`
+        # successors, hashed from the context (O(1) memory in vocab).
+        self._mix = rng.integers(1, 2**31 - 1, size=3)
+        self.branching = branching
+
+    def _succ(self, a: np.ndarray, b: np.ndarray, r: np.ndarray
+              ) -> np.ndarray:
+        m0, m1, m2 = self._mix
+        h = (a * m0 + b * m1 + r * m2) % (2**31 - 1)
+        return (h % self.vocab).astype(np.int32)
+
+    def sample(self, batch: int, seq_len: int, seed: int) -> np.ndarray:
+        """[batch, seq_len + 1] int32 tokens."""
+        rng = np.random.default_rng(seed)
+        toks = np.zeros((batch, seq_len + 1), dtype=np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, size=batch)
+        toks[:, 1] = rng.integers(0, self.vocab, size=batch)
+        branch = rng.integers(0, self.branching, size=(batch, seq_len + 1))
+        for t in range(2, seq_len + 1):
+            toks[:, t] = self._succ(toks[:, t - 2], toks[:, t - 1],
+                                    branch[:, t])
+        return toks
+
+    def batch(self, batch: int, seq_len: int, step: int,
+              *, shard: int = 0, n_shards: int = 1) -> dict:
+        """Host-sharded batch: shard i of n gets a disjoint seed lane."""
+        seed = step * n_shards + shard
+        toks = self.sample(batch, seq_len, seed)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 class SyntheticCIFAR:

@@ -1,23 +1,92 @@
-"""Linear layers through the CIM execution layer.
+"""Parameter specs and the basic layers, through the CIM execution layer.
 
-A weight leaf is either a plain tensor (digital only in this slice) or a
-precomputed ``engine.PlannedWeights`` (the weight-stationary serving
-path: codes, colsums and planes are reused across every forward). The
-one-shot straight-through path for fresh weights comes with training
-(ROADMAP slice 6).
+Every layer module defines a ``*_spec(cfg) -> dict[str, ParamSpec]``;
+``init_params(generator, spec)`` materializes the weights on the
+generator's device. One source of truth for shapes and init.
+
+A linear layer's weight leaf is a plain tensor (planned on the fly per
+call: ``engine.matmul``) or a precomputed ``engine.PlannedWeights`` (the
+weight-stationary serving path: codes, colsums and planes are reused
+across every forward), so the paper's macro is a per-layer execution
+mode (``CIMPolicy``), not a separate model.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import CIMPolicy
 from repro_torch.core import engine
 from repro_torch.core.engine import PlannedWeights
 
 Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]  # logical axis names, len == ndim
+    init: str = "normal"  # normal | zeros | ones | normal:<std> | uniform:<s> | fanin
+    dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def _init_one(generator: torch.Generator, spec: ParamSpec) -> torch.Tensor:
+    kind, _, arg = spec.init.partition(":")
+    dev = generator.device
+    if kind == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+    if kind == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+    if kind in ("normal", "fanin"):
+        if kind == "normal":
+            std = float(arg) if arg else 0.02
+        else:  # the leading dim is the fan-in, as in the JAX package
+            fan_in = spec.shape[0] if spec.shape else 1
+            std = (1.0 / max(fan_in, 1)) ** 0.5
+        z = torch.randn(spec.shape, generator=generator, device=dev)
+        return (std * z).to(spec.dtype)
+    if kind == "uniform":
+        s = float(arg) if arg else 1.0
+        u = torch.rand(spec.shape, generator=generator, device=dev)
+        return ((2.0 * u - 1.0) * s).to(spec.dtype)
+    raise ValueError(f"unknown init '{spec.init}'")
+
+
+def init_params(generator: torch.Generator, spec_tree: Any) -> Any:
+    """Materialize a (nested dict of) ParamSpec into tensors, drawn in
+    order from ``generator`` on its device (the JAX package's
+    ``jax.random`` streams cannot be replayed; its parameters come across
+    with ``convert.to_torch``)."""
+    if isinstance(spec_tree, ParamSpec):
+        return _init_one(generator, spec_tree)
+    return {k: init_params(generator, v) for k, v in spec_tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Linear through the CIM execution layer
+# ---------------------------------------------------------------------------
+
+
+def linear_spec(
+    d_in: int,
+    d_out: int,
+    in_axis: str | None,
+    out_axis: str | None,
+    *,
+    bias: bool = False,
+    init: str = "fanin",
+) -> dict:
+    spec = {"w": ParamSpec((d_in, d_out), (in_axis, out_axis), init)}
+    if bias:
+        spec["b"] = ParamSpec((d_out,), (out_axis,), "zeros")
+    return spec
 
 
 def linear_apply(
@@ -39,13 +108,115 @@ def linear_apply(
         wd = plan.best_weights(x.dtype) if plan is not None else w
         y = x @ wd.to(x.dtype)
     elif plan is not None:
+        # Weight-stationary: all weight-side transforms precomputed.
         y = engine.execute(x, plan, policy, generator=generator)
     else:
-        raise NotImplementedError(
-            "a CIM policy needs planned weights (engine.plan_weights / "
-            "resnet.plan_params); the straight-through path for fresh "
-            "weights comes with training, slice 6 of ROADMAP.md"
-        )
+        # Fresh weights: plan per call.
+        y = engine.matmul(x, w, policy, generator=generator)
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Norms / embeddings / MLPs
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_spec(d: int, axis: str = "embed") -> dict:
+    return {"scale": ParamSpec((d,), (axis,), "ones")}
+
+
+def rmsnorm_apply(params: Params, x: torch.Tensor, eps: float
+                  ) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layernorm_spec(d: int, axis: str = "embed") -> dict:
+    return {
+        "scale": ParamSpec((d,), (axis,), "ones"),
+        "bias": ParamSpec((d,), (axis,), "zeros"),
+    }
+
+
+def layernorm_apply(params: Params, x: torch.Tensor, eps: float
+                    ) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = (y * params["scale"].to(torch.float32)
+         + params["bias"].to(torch.float32))
+    return y.to(x.dtype)
+
+
+def embedding_spec(vocab: int, d: int) -> dict:
+    return {"table": ParamSpec((vocab, d), ("vocab", "embed"), "normal:0.02")}
+
+
+def embedding_apply(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens]
+
+
+def mlp_spec(d: int, d_ff: int, act: str) -> dict:
+    if act == "silu":  # SwiGLU
+        return {
+            "gate": linear_spec(d, d_ff, "embed", "mlp"),
+            "up": linear_spec(d, d_ff, "embed", "mlp"),
+            "down": linear_spec(d_ff, d, "mlp", "embed"),
+        }
+    return {
+        "up": linear_spec(d, d_ff, "embed", "mlp"),
+        "down": linear_spec(d_ff, d, "mlp", "embed"),
+    }
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))`` rounded after each op in x's dtype: the JAX
+    package's ``lax.logistic`` as XLA expands it. In bfloat16,
+    ``torch.sigmoid`` (one rounding) differs from it in about a third of
+    the values."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
+def mlp_apply(
+    params: Params,
+    x: torch.Tensor,
+    act: str,
+    policy: CIMPolicy | None,
+) -> torch.Tensor:
+    en = policy.apply_to_mlp if policy else False
+    if act == "silu":
+        g = linear_apply(params["gate"], x, policy, cim_enabled=en)
+        u = linear_apply(params["up"], x, policy, cim_enabled=en)
+        h = g * _sigmoid(g) * u  # jax.nn.silu: x * sigmoid(x)
+    else:
+        u = linear_apply(params["up"], x, policy, cim_enabled=en)
+        h = F.gelu(u, approximate="tanh")  # jax.nn.gelu's default
+    return linear_apply(params["down"], h, policy, cim_enabled=en)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (ar / head_dim))
+
+
+def apply_rope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float
+) -> torch.Tensor:
+    """x: [..., seq, n_heads, head_dim]; positions: [..., seq]."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # [hd/2]
+    angles = positions[..., None].to(torch.float32) * freqs  # [..., S, hd/2]
+    cos = torch.cos(angles)[..., None, :]  # [..., S, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
