@@ -84,8 +84,24 @@ file; it exits non-zero without either. Phases (each one fails the run):
               examples/serve_cim.py's five requests through the
               ContinuousBatcher under cim-kernel; B1's time per launch at
               the 14 LM operands (as phase 6) beside its bound; one decode
-              step under torch.profiler.
-  8. report   one JSON line listing every kernel of the port and its
+              step under torch.profiler; the fp8 KV-cache conversion on
+              the card against the CPU path's on out-of-range values and
+              every bfloat16 pattern.
+  8. calibration  slice 4's path, benchmarks/pareto.py's full profile on
+              the checkpoint: calibrate_resnet on 256 images (grid adc
+              3-5 x rows 8, 16 x the three variants x vdd 0.6/0.9/1.2,
+              noisy scoring over 2 card generators), the paper grid's
+              operating point == (4, 16), refine (budget 12, tol 0.01)
+              and pareto on noiseless forwards over 64 held-out images
+              with every calibrated dispatch on a kernel (or a recorded
+              fallback); for the refined plan and each variant's
+              projection, the kernels' logits == the scan twin's
+              (torch.equal) and each kernel == plain on the captured
+              operands; two noisy evaluations under one generator seed
+              equal; core.noise's four studies card against CPU; top-1
+              and modelled TOPS/W of the seed and refined plans over
+              1024 images; each kernel's time per eval beside its bound.
+  9. report   one JSON line listing every kernel of the port and its
               launches on each path.
 
 The last line is {"ok": true, "device": {...}}.
@@ -120,6 +136,12 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 128, 32
 LM_SCAN_STEPS = 8  # decode steps held to the scan twin
 LM_PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 LM_SCHEDULE = ((4, 6), (8, 4), (3, 8), (6, 5), (5, 7))  # serve_cim.py's
+DEVICE = "cuda"  # phase 8's device (a CPU rehearsal sets "cpu")
+# Phase 8: benchmarks/pareto.py's full profile (--resnet, not --quick).
+CAL_IMAGES, HELD_OUT = 256, 64
+VARIANTS_ALL = ("p8t", "adder-tree", "cell-adc")
+CAL_GRID = dict(adc_bits=(3, 4, 5), rows_active=(8, 16), coarse_bits=(1,),
+                variants=VARIANTS_ALL, vdd=(0.6, 0.9, 1.2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -540,7 +562,7 @@ def eval_mode(params, bn, batches, mode, backend=""):
     labels = torch.cat([lab for _, lab in batches])
     top1 = (logits.argmax(-1) == labels).float().mean().item()
     if not (torch.isfinite(logits).all() and
-            logits.shape == (len(batches) * BATCH, rcfg.N_CLASSES)):
+            logits.shape == (len(labels), rcfg.N_CLASSES)):
         raise AssertionError(f"{mode}: bad logits {tuple(logits.shape)}")
     return logits, top1, len(logits) / secs
 
@@ -721,35 +743,35 @@ def phase_variants(params, bn, batches, slice1_logits):
     return launches
 
 
+def launch_timing(kern, x, w, spec, tag, label="timing"):
+    """One launch of ``kern`` at (x, w, spec): (ms over back-to-back
+    wrapper calls, plain ms, bound ms, device ms in a graph, bound by
+    bytes), logged under ``tag``."""
+    m, k = x.shape
+    n = w.shape[1]
+    ms = cuda_time_ms(lambda f=kern.wrapper(): f(x, w, spec))
+    device_ms = graph_time_ms(lambda f=kern.wrapper(): f(x, w, spec))
+    plain_ms = cuda_time_ms(lambda f=kern.plain(): f(x, w, spec))
+    nbytes = m * k * x.element_size() + k * n * w.element_size() + m * n * 4
+    macs = m * k * n * (spec.weight_bits if kern.per_plane else 1)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
+    log(f"[{label}] {kern.name:22s} {tag:12s} [{m}, {k}]x[{k}, {n}]: "
+        f"kernel {ms:.4f} ms over back-to-back wrapper calls "
+        f"({device_ms:.4f} device ms in a graph), plain "
+        f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+        f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
+        f"{nbytes / 1e6:.1f} MB, {2 * macs / 1e9:.2f} G int8 ops)")
+    return ms, plain_ms, max(bytes_ms, ops_ms), device_ms, bytes_ms >= ops_ms
+
+
 def phase_timings(ops, spec):
     """Per kernel, one forward's 14 launches summed: (ms over back-to-back
     wrapper calls, plain ms, bound ms, bound_by, device ms in a graph)."""
     rows = {}
     for kern in KERNELS:
-        per_op = []
-        for name, x, w in ops:
-            m, k = x.shape
-            n = w.shape[1]
-            ms = cuda_time_ms(
-                lambda x=x, w=w, f=kern.wrapper(): f(x, w, spec))
-            device_ms = graph_time_ms(
-                lambda x=x, w=w, f=kern.wrapper(): f(x, w, spec))
-            plain_ms = cuda_time_ms(
-                lambda x=x, w=w, f=kern.plain(): f(x, w, spec))
-            nbytes = (m * k * x.element_size() + k * n * w.element_size()
-                      + m * n * 4)
-            macs = m * k * n * (spec.weight_bits if kern.per_plane else 1)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = 2 * macs / INT8_OPS_PER_S * 1e3
-            per_op.append((ms, plain_ms, max(bytes_ms, ops_ms), device_ms,
-                           bytes_ms >= ops_ms))
-            log(f"[timing] {kern.name:22s} {name:12s} [{m}, {k}]x[{k}, {n}]: "
-                f"kernel {ms:.4f} ms over back-to-back wrapper calls "
-                f"({device_ms:.4f} device ms in a graph), plain "
-                f"{plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
-                f"({'bytes' if bytes_ms >= ops_ms else 'operations'}; "
-                f"{nbytes / 1e6:.1f} MB, {2 * macs / 1e9:.2f} G int8 "
-                f"ops)")
+        per_op = [launch_timing(kern, x, w, spec, name)
+                  for name, x, w in ops]
         tot = [sum(r[i] for r in per_op) for i in range(4)]
         bound_by = ("bytes" if sum(r[4] for r in per_op) * 2 >= len(per_op)
                     else "operations")
@@ -804,26 +826,6 @@ def scan_twin(cfg):
                                                backend="scan-twin"))
 
 
-@contextlib.contextmanager
-def capture_b1(n: int):
-    """The first ``n`` (x codes, w codes) operands B1's wrapper gets."""
-    from repro_torch.kernels import ops
-
-    real = ops.cim_matmul_kernel
-    got = []
-
-    def rec(x, w, spec):
-        if len(got) < n:
-            got.append((x, w))
-        return real(x, w, spec)
-
-    ops.cim_matmul_kernel = rec
-    try:
-        yield got
-    finally:
-        ops.cim_matmul_kernel = real
-
-
 def _tree_numel(tree) -> int:
     if isinstance(tree, dict):
         return sum(_tree_numel(v) for v in tree.values())
@@ -864,6 +866,41 @@ def host_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def fp8_cache_check():
+    """The fp8 KV-cache conversion (``attention.to_cache_dtype``) on the
+    card against the port's CPU path, which the CPU tests hold bit for
+    bit to the JAX package's ``astype``: out-of-range values (|x| in
+    (448, 1e4], +-inf, NaN of both signs) and every bfloat16 bit
+    pattern."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import attention
+
+    rng = np.random.default_rng(6)
+    wide = rng.uniform(448.0, 1e4, 2048)
+    x = np.concatenate([rng.standard_normal(4096) * 4, wide, -wide,
+                        np.array([0.0, 448.0, -448.0, 463.99997, 464.0,
+                                  -464.0, 464.00003, -464.00003, 1e4, -1e4,
+                                  np.inf, -np.inf, np.nan, -np.nan])
+                        ]).astype(np.float32)
+    bf16 = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    for name, t in (("float32", torch.from_numpy(x)), ("bfloat16", bf16)):
+        f8 = torch.float8_e4m3fn
+        host = attention.to_cache_dtype(t, f8).view(torch.uint8)
+        card = attention.to_cache_dtype(t.cuda(), f8).view(torch.uint8).cpu()
+        raw = t.cuda().to(f8).view(torch.uint8).cpu()
+        if not torch.equal(card, host):
+            bad = (card != host).sum().item()
+            raise AssertionError(f"fp8 cache conversion of {name} differs "
+                                 f"on the card in {bad} values")
+        log(f"[lm] fp8 cache conversion on the card == the CPU path's on "
+            f"{t.numel()} {name} values (out of range included); torch's "
+            f"own conversion on the card differs in "
+            f"{(raw != host).sum().item()} of them")
+
+
 def phase_lm():
     """Slice 3: qwen2-0.5b served through B1 (see the module docstring).
     Returns (launches, max |err|, timings) for the report."""
@@ -878,6 +915,7 @@ def phase_lm():
     from repro_torch.serve.engine import (ContinuousBatcher, Request,
                                           ServeEngine)
 
+    fp8_cache_check()
     cfg_k = lm_cfg("cim-kernel")
     spec = cfg_k.cim.cim
     per_step = cfg_k.n_layers * len(LM_PROJECTIONS)
@@ -900,13 +938,16 @@ def phase_lm():
     caches = transformer.init_caches(cfg_k, LM_BATCH, LM_PROMPT + 2,
                                      device="cuda")
     with torch.no_grad():
-        with capture_b1(len(LM_PROJECTIONS)) as pre:
+        with capture_kernel_operands() as pre:
             logits, _ = transformer.prefill(planned, prompts, caches, cfg_k)
-        with capture_b1(len(LM_PROJECTIONS)) as dec:
+        with capture_kernel_operands() as dec:
             transformer.decode_step(planned, logits.argmax(-1), LM_PROMPT,
                                     caches, cfg_k)
-    ops = [(f"prefill {p}", x, w) for p, (x, w) in zip(LM_PROJECTIONS, pre)]
-    ops += [(f"decode {p}", x, w) for p, (x, w) in zip(LM_PROJECTIONS, dec)]
+    # The first layer's 7 projections, in call order.
+    ops = [(f"prefill {p}", x, w) for p, (_, x, w, _) in zip(LM_PROJECTIONS,
+                                                             pre)]
+    ops += [(f"decode {p}", x, w) for p, (_, x, w, _) in zip(LM_PROJECTIONS,
+                                                            dec)]
     max_err = 0.0
     for name, x, w in ops:
         m = LM_BATCH * (LM_PROMPT if name.startswith("prefill") else 1)
@@ -1127,6 +1168,294 @@ def lm_profile(planned, cfg, prompts):
             f"x{count:<4d} {key[:100]}")
 
 
+@contextlib.contextmanager
+def capture_kernel_operands():
+    """Every (kernel, x codes, w codes, spec) the three kernel wrappers
+    get through ``kernels.ops`` (dispatch's route to them)."""
+    from repro_torch.kernels import ops
+
+    names = {"gpq_matmul": "cim_matmul_kernel",
+             "adder_tree_gpq_matmul": "adder_tree_matmul_kernel",
+             "cell_adc_gpq_matmul": "cell_adc_matmul_kernel"}
+    real = {k: getattr(ops, a) for k, a in names.items()}
+    got = []
+
+    def wrap(kname):
+        def rec(x, w, spec):
+            got.append((kname, x, w, spec))
+            return real[kname](x, w, spec)
+        return rec
+
+    for k, a in names.items():
+        setattr(ops, a, wrap(k))
+    try:
+        yield got
+    finally:
+        for k, a in names.items():
+            setattr(ops, a, real[k])
+
+
+def _rates_close(a, b, n: int, what: str):
+    """Two rate vectors from n samples each agree within 5 standard errors
+    of their difference plus 2e-3 (tests/test_torch_noise.py's rule)."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    p = (a + b) / 2
+    tol = 5 * np.sqrt(p * (1 - p) * 2 / n) + 2e-3
+    if (np.abs(a - b) > tol).any():
+        raise AssertionError(f"{what}: card and CPU rates differ beyond "
+                             f"5 standard errors: {a} {b}")
+
+
+def _stats_close(card, host, n: int, what: str):
+    """Means within 5 standard errors of their difference, standard
+    deviations within 5 sqrt(2) sqrt(1/(2n)) relative (the CPU tests')."""
+    import numpy as np
+
+    sd = np.maximum(card.std_v.cpu().numpy(), host.std_v.numpy())
+    if (np.abs(card.mean_v.cpu().numpy() - host.mean_v.numpy())
+            > 5 * sd * np.sqrt(2 / n)).any():
+        raise AssertionError(f"{what}: card and CPU means differ")
+    rel = 5 * np.sqrt(2) * np.sqrt(1 / (2 * n))
+    if (np.abs(card.std_v.cpu().numpy() - host.std_v.numpy())
+            > rel * sd).any():
+        raise AssertionError(f"{what}: card and CPU spreads differ")
+
+
+def noise_studies_card_vs_cpu():
+    """core.noise's four Monte-Carlo studies on the card against the same
+    studies on the CPU (other generators, so other draws): statistics
+    within the CPU tests' tolerances."""
+    from repro_torch.core import noise
+    from repro_torch.core.params import CIMConfig
+
+    cfg = CIMConfig(vdd=0.6)
+    t0 = time.perf_counter()
+    for study in ("mc_dac_linearity", "mc_accumulation_linearity"):
+        n = 10_000
+        card = getattr(noise, study)(cfg, n_samples=n, seed=0, device=DEVICE)
+        host = getattr(noise, study)(cfg, n_samples=n, seed=1, device="cpu")
+        _stats_close(card, host, n, study)
+        dev = (card.mean_v - card.ideal_v).abs().max().item()
+        log(f"[calibration] {study} ({n} samples): card mean-ideal max "
+            f"{dev:.3g} V, std {card.std_v.mean().item():.4g} V (CPU "
+            f"{host.std_v.mean().item():.4g} V)")
+    n = 4096
+    card = noise.mc_adc_error_rate(cfg, n_samples=n, seed=0, device=DEVICE)
+    host = noise.mc_adc_error_rate(cfg, n_samples=n, seed=1, device="cpu")
+    _rates_close(card.cpu(), host, n, "mc_adc_error_rate")
+    log(f"[calibration] mc_adc_error_rate ({n} samples): mean code-error "
+        f"rate card {card.mean().item():.4f}, CPU {host.mean().item():.4f}")
+    for coarse in (0, 1, 2):
+        card = noise.mc_adc_split_error_rate(cfg, coarse, n_samples=n,
+                                             seed=0, device=DEVICE)
+        host = noise.mc_adc_split_error_rate(cfg, coarse, n_samples=n,
+                                             seed=1, device="cpu")
+        _rates_close(card.cpu(), host, n, f"split {coarse}")
+        log(f"[calibration] mc_adc_split_error_rate coarse {coarse}: card "
+            f"{card.mean().item():.4f}, CPU {host.mean().item():.4f}")
+    return time.perf_counter() - t0
+
+
+def phase_calibration(params, bn, batches):
+    """Slice 4: the paper's hardware-aware calibration sweep on the card
+    (see the module docstring). Returns the kernels-line entries of the
+    calibration path (refine and pareto evaluations)."""
+    import torch
+
+    from repro_torch.configs import resnet as rcfg
+    from repro_torch.core import calibrate
+    from repro_torch.kernels import cim_mac, dispatch
+
+    t_phase = time.perf_counter()
+    ds = rcfg.dataset()
+    cal = ds.batch(CAL_IMAGES, step=0, train=False)
+    cal_images = torch.from_numpy(cal["image"]).to(DEVICE)
+    b = ds.batch(HELD_OUT, step=7, train=False)
+    held_images = torch.from_numpy(b["image"]).to(DEVICE)
+    held_labels = torch.from_numpy(b["label"]).long().to(DEVICE)
+    held = [(held_images, held_labels)]
+    cfg = dataclasses.replace(rcfg.RESNET_CFG, cim=rcfg.cim_policy())
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # The sweep, noisy scoring over 2 generators on the card.
+    seed, t_sweep = synced(lambda: calibrate.calibrate_resnet(
+        params, bn, cal_images, cfg,
+        grid=calibrate.CalibrationGrid(**CAL_GRID),
+        max_samples=CAL_IMAGES, n_noise_keys=2))
+    if len(seed.layers) != MACRO_CONVS or seed.cost_unit != "fJ/MAC":
+        raise AssertionError(f"sweep: {len(seed.layers)} layers, "
+                             f"{seed.cost_unit}")
+    log(f"[calibration] sweep of {MACRO_CONVS} convs on {CAL_IMAGES} "
+        f"images (max_samples {CAL_IMAGES}, noisy, 2 generators on "
+        f"{DEVICE}), grid {CAL_GRID}: {t_sweep:.2f} s; seed result:")
+    for line in seed.summary().splitlines():
+        log(f"[calibration]   {line}")
+    paper, t_paper = synced(lambda: calibrate.calibrate_resnet(
+        params, bn, cal_images, cfg,
+        grid=calibrate.CalibrationGrid(rows_active=(8, 16)),
+        max_samples=CAL_IMAGES, n_noise_keys=2))
+    if paper.operating_point() != (4, 16):
+        raise AssertionError(f"paper grid selected "
+                             f"{paper.operating_point()}, want (4, 16)")
+    log(f"[calibration] paper grid (adc 3-5 x rows 8, 16 x split 1, 2): "
+        f"operating point {paper.operating_point()} == the reference's "
+        f"(4, 16), {t_paper:.2f} s")
+
+    # Refine and pareto on noiseless real forwards through the kernels.
+    real_eval = calibrate.resnet_eval_fn(params, bn, held_images,
+                                         held_labels, cfg)
+    n_evals = 0
+
+    def eval_fn(result):
+        nonlocal n_evals
+        n_evals += 1
+        return real_eval(result)
+
+    cim_mac.LAUNCHES.clear()
+    with dispatch.record_resolutions() as res_log:
+        refined, t_refine = synced(lambda: calibrate.refine(
+            seed, eval_fn, budget=12, tol=0.01))
+        points, t_pareto = synced(lambda: refined.pareto(eval_fn=eval_fn))
+    launches = {k.name: cim_mac.LAUNCHES[k.name] for k in KERNELS}
+    kinds = collections.Counter((r.key.variant, r.key.backend, r.source)
+                                for r in res_log)
+    fallbacks = {k: c for k, c in kinds.items() if k[1] != "cuda"}
+    if any(k[2] not in ("guard-fallback", "spec-fallback")
+           for k in fallbacks) or any(k[2] != "heuristic" for k in kinds
+                                      if k[1] == "cuda"):
+        raise AssertionError(f"calibrated evals left the kernels without a "
+                             f"recorded reason: {dict(kinds)}")
+    r = refined.refinement
+    log(f"[calibration] refine (budget 12, tol 0.01, {HELD_OUT} held-out "
+        f"images): {sum(m.accepted for m in r.moves)}/{len(r.moves)} moves "
+        f"accepted, {r.evals_used} evals, top-1 {r.seed_accuracy:.4f} -> "
+        f"{r.final_accuracy:.4f}, {t_refine:.2f} s; pareto {t_pareto:.2f} s")
+    for line in refined.summary().splitlines():
+        log(f"[calibration]   {line}")
+    log("[calibration] refine moves (layer, variant, adc, rows, vdd, top-1, "
+        "accepted): " + "; ".join(
+            f"{m.layer} {m.variant} {m.adc_bits} {m.rows_active} {m.vdd} "
+            f"{m.accuracy:.4f} {m.accepted}" for m in r.moves))
+    log(f"[calibration] resolutions over refine + pareto: {dict(kinds)}; "
+        f"launches {launches}")
+    for p in points:
+        log(f"[calibration] pareto {p.variant:10s} vdd {p.vdd:.1f}: "
+            f"{p.tops_per_w:.3f} TOPS/W, top-1 {p.accuracy:.4f}, rel-L2 "
+            f"{p.score:.5f}{', frontier' if p.frontier else ''}")
+    if not any(p.frontier for p in points):
+        raise AssertionError("empty pareto frontier")
+
+    # Each variant the refined plan selects reaches its kernel, and the
+    # kernels' logits equal the scan twin's (mixed plan, then each
+    # selected variant's projection).
+    selected = sorted({lc.variant for lc in refined.layers.values()})
+    max_err = {k.name: 0.0 for k in KERNELS}
+    ops = []
+    for label, res in [("refined", refined)] + [
+            (f"{v} projection", refined.project(v)) for v in VARIANTS_ALL]:
+        res.register("analog", overwrite=True)
+        with dispatch.record_resolutions() as lk, \
+                capture_kernel_operands() as got:
+            kern, _, _ = eval_mode(params, bn, held, "cim-kernel", "analog")
+        with dispatch.record_resolutions() as ls:
+            scan, _, _ = eval_mode(params, bn, held, "cim", "analog")
+        want_v = {lc.variant for lc in res.layers.values()}
+        cuda_v = {r.key.variant for r in lk if r.key.backend == "cuda"}
+        if cuda_v != want_v or {r.key.backend for r in ls} != {"scan"}:
+            raise AssertionError(f"{label}: kernels for {cuda_v}, scan "
+                                 f"{ {r.key.backend for r in ls} }; want "
+                                 f"{want_v}")
+        if not torch.equal(kern, scan):
+            d = (kern - scan).abs().max().item()
+            raise AssertionError(f"{label}: kernel logits != scan ({d})")
+        if label != "refined":
+            ops += got
+        log(f"[calibration] {label}: variants {sorted(want_v)} through "
+            f"their kernels ({len(got)} launches), logits == the scan "
+            f"twin's (torch.equal) on {HELD_OUT} images")
+    for kname, x, w, spec in ops:  # the path's operands against plain
+        kern = next(k for k in KERNELS if k.name == kname)
+        err = (kern.wrapper()(x, w, spec)
+               - kern.plain()(x, w, spec)).abs().max().item()
+        max_err[kname] = max(max_err[kname], err)
+        if err:
+            raise AssertionError(f"{kname} != plain on a calibration "
+                                 f"operand (max |err| {err})")
+
+    # Noisy evaluation: deterministic under a seeded card generator.
+    noisy_cfg = dataclasses.replace(rcfg.RESNET_CFG,
+                                    cim=rcfg.cim_policy(noisy=True))
+    accs = []
+    for _ in range(2):
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        ev = calibrate.resnet_eval_fn(params, bn, held_images, held_labels,
+                                      noisy_cfg, generator=gen)
+        with dispatch.record_resolutions() as ln:
+            accs.append(ev(refined))
+        if {(x.key.backend, x.source) for x in ln} != {("scan", "noise")}:
+            raise AssertionError(f"noisy eval routed {len(ln)} convs to "
+                                 f"{ {(x.key.backend, x.source) for x in ln} }")
+        accs.append(ev(refined))
+    if len(set(accs)) != 1:
+        raise AssertionError(f"noisy evaluation not deterministic: {accs}")
+    log(f"[calibration] noisy evaluation (generator seed 1 on {DEVICE}, "
+        f"scan with source 'noise'): top-1 {accs[0]:.4f} four times "
+        f"(noiseless {r.final_accuracy:.4f})")
+
+    t_noise = noise_studies_card_vs_cpu()
+
+    # The seed and refined plans over phase 4's images, through the kernels.
+    for label, res in (("seed", seed), ("refined", refined)):
+        res.register("analog", overwrite=True)
+        _, top1, ips = eval_mode(params, bn, batches, "cim-kernel",
+                                 backend="analog")
+        log(f"[calibration] {label} result: top-1 {top1:.4f} over "
+            f"{len(batches) * BATCH} images ({ips:.1f} images/s), "
+            f"{res.effective_tops_per_w():.3f} TOPS/W (modelled)")
+
+    # The path's kernel times: one eval of each variant's projection.
+    entries = []
+    for kern in KERNELS:
+        mine = [(x, w, spec) for kn, x, w, spec in ops if kn == kern.name]
+        per = [launch_timing(kern, x, w, spec, f"conv {i}", "cal-timing")
+               for i, (x, w, spec) in enumerate(mine)]
+        tot = [sum(t[i] for t in per) for i in range(4)]
+        bound_by = ("bytes" if sum(t[4] for t in per) * 2 >= len(per)
+                    else "operations")
+        log(f"[calibration] {kern.name}: {launches[kern.name]} launches over "
+            f"refine + pareto ({n_evals} evals), {len(per)} per eval; per "
+            f"eval {tot[0]:.4f} ms over wrapper calls ({tot[3]:.4f} device "
+            f"ms), plain {tot[1]:.4f} ms, bound {tot[2]:.4f} ms ({bound_by})")
+        if launches[kern.name] == 0:
+            raise AssertionError(f"{kern.name} never launched on the "
+                                 f"calibration path")
+        entries.append({
+            "name": kern.name,
+            "path": f"calibration: refine + pareto evals ({HELD_OUT} "
+                    f"held-out images, {len(per)} launches per eval)",
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kern.name}.cu",
+            "replaces": kern.replaces,
+            "launches": launches[kern.name],
+            "max_abs_err": max_err[kern.name],
+            "ms": tot[0], "device_ms": tot[3], "plain_ms": tot[1],
+            "bound_ms": tot[2], "bound_by": bound_by, "library_ms": None,
+        })
+    secs = time.perf_counter() - t_phase
+    log(f"[calibration] phase: {secs:.1f} s (sweep {t_sweep:.2f}, paper "
+        f"grid {t_paper:.2f}, refine {t_refine:.2f}, pareto {t_pareto:.2f}, "
+        f"noise studies {t_noise:.2f}); selected variants {selected}")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1149,6 +1478,7 @@ def main() -> int:
     launches = phase_variants(params, bn, batches, slice1_logits)
     timings = phase_timings(ops, spec)
     lm_launches, lm_err, lm_t = phase_lm()
+    cal_entries = phase_calibration(params, bn, batches)
 
     report = {"kernels": [{
         "name": kern.name,
@@ -1185,6 +1515,7 @@ def main() -> int:
         "prefill_plain_ms": lm_t["prefill"][1],
         "prefill_bound_ms": lm_t["prefill"][2],
     })
+    report["kernels"] += cal_entries
     log(json.dumps(report))
     log(card)
     print(json.dumps({"ok": True, "device": {

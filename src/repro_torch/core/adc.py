@@ -13,8 +13,10 @@ In the integer domain the transfer is
   code = clip(floor(pMAC / step), 0, 2**adc_bits - 1)   ('floor')
 
 with values above the cutoff threshold saturating to the top code (the
-paper's partial-sum quantization). Hardware-noise injection comes with
-slice 4 of ROADMAP.md: a noisy operating point with a generator raises.
+paper's partial-sum quantization). A ``noisy`` operating point with a
+``torch.Generator`` injects hardware errors: comparator offsets in the
+voltage-domain readout, the folded pMAC-domain sigma in the integer
+transfer.
 """
 
 from __future__ import annotations
@@ -102,13 +104,19 @@ def adc_read_voltage(
         raise ValueError(
             f"coarse_bits={coarse_bits} out of range [0, {cfg.adc_bits}]"
         )
-    dac._refuse_noise(cfg, generator)
     vrefs = reference_voltages(cfg, v_abl.device)  # decreasing in N
     # Ties at an exact reference crossing resolve toward "above
     # reference" with an epsilon far below one LSB.
     eps = cfg.vdd * 1e-6
+    levels = vrefs + eps
+    if cfg.noisy and generator is not None:
+        # One input-referred offset per comparator and conversion, drawn
+        # in one call of shape v_abl.shape + (2**bits,).
+        sigma_v = cfg.sigma_cmp_mv * 1e-3 * (cfg.vdd / 0.6)
+        levels = levels + sigma_v * dac.standard_normal(
+            (*v_abl.shape, vrefs.shape[0]), generator, v_abl.device)
     fine_codes = 1 << (cfg.adc_bits - coarse_bits)
-    cmp_all = v_abl[..., None] <= (vrefs + eps)  # [..., 2**bits]
+    cmp_all = v_abl[..., None] <= levels  # [..., 2**bits]
     boundaries = fine_codes * torch.arange(1, 1 << coarse_bits,
                                            device=v_abl.device)
     seg = torch.sum(cmp_all[..., boundaries].to(torch.int32), dim=-1)
@@ -137,13 +145,16 @@ def adc_transfer_int(
 ) -> torch.Tensor:
     """pMAC -> ADC code in the integer domain (int32).
 
-    ``generator`` requests hardware-noise injection for a ``noisy``
-    operating point, which this port does not carry yet: that request
-    raises. A noisy config without a generator is noiseless, exactly as
-    the reference treats a noisy config without a key.
+    With ``cfg.noisy`` and a generator, Gaussian noise of ``sigma_pmac``
+    (the voltage-domain sigmas folded into pMAC units) is added first,
+    one draw per element of ``pmac`` -- how the paper's hardware-aware
+    system simulations inject PVT and comparator errors. A noisy config
+    without a generator is noiseless, as the reference is without a key.
     """
-    dac._refuse_noise(cfg, generator)
     x = pmac.to(torch.float32)
+    if cfg.noisy and generator is not None:
+        x = x + cfg.sigma_pmac * dac.standard_normal(x.shape, generator,
+                                                     x.device)
     step = cfg.adc_step
     if cfg.adc_mode == "nearest":
         code = torch.floor(true_divide(x, step) + 0.5)

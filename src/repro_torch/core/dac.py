@@ -13,8 +13,12 @@ value(V_DAC) = X and V = VDD encodes 0.
 
 Every function takes the operating point by attribute access only, so
 ``cfg`` may be a flat ``CIMConfig`` or a ``core.pipeline.MacroSpec``.
-Hardware-noise injection comes with slice 4 of ROADMAP.md: a noisy
-operating point with a generator raises.
+
+Hardware noise: a ``noisy`` operating point with a ``torch.Generator``
+draws Gaussian errors from that generator (the JAX package's PRNG keys
+become generators; torch cannot replay the reference's stream, so noisy
+paths agree with it in distribution, not draw for draw). A noisy point
+without a generator is noiseless, as the reference is without a key.
 """
 
 from __future__ import annotations
@@ -24,12 +28,19 @@ import torch
 from repro_torch.core.quant import true_divide
 
 
-def _refuse_noise(cfg, generator: torch.Generator | None) -> None:
-    if cfg.noisy and generator is not None:
+def standard_normal(shape, generator: torch.Generator,
+                    device) -> torch.Tensor:
+    """float32 N(0, 1) draws of ``shape`` on ``device`` from
+    ``generator``, which must live on that device (a CUDA generator fills
+    CUDA tensors only)."""
+    device = torch.device(device)
+    if generator.device.type != device.type:
         raise ValueError(
-            "hardware-noise injection is not ported yet; it comes with "
-            "slice 4 (calibration and the analog pipeline) of ROADMAP.md"
-        )
+            f"a {generator.device.type} generator cannot draw noise for "
+            f"a tensor on {device}; create it with torch.Generator("
+            f"device={device.type!r})")
+    return torch.randn(tuple(shape), generator=generator, device=device,
+                       dtype=torch.float32)
 
 
 def cap_states(x_code: torch.Tensor, cfg) -> torch.Tensor:
@@ -58,10 +69,18 @@ def cap_states(x_code: torch.Tensor, cfg) -> torch.Tensor:
 def dac_voltage(
     x_code: torch.Tensor, cfg, *, generator: torch.Generator | None = None
 ) -> torch.Tensor:
-    """Shared CBL/iBL voltage after the eDAC charge-sharing phase:
-    exactly (16 - X)/16 * VDD (noise raises; slice 4)."""
-    _refuse_noise(cfg, generator)
-    return torch.mean(cap_states(x_code, cfg), dim=-1) * cfg.vdd
+    """Shared CBL/iBL voltage after the eDAC charge-sharing phase.
+
+    Exactly (16 - X)/16 * VDD when noiseless. With ``cfg.noisy`` and a
+    generator, one Gaussian error per conversion (paper Fig. 9a: worst
+    case sigma 1.8 mV at 0.6 V, scaled with vdd) is added in the voltage
+    domain, drawn in one call of x_code's shape.
+    """
+    v = torch.mean(cap_states(x_code, cfg), dim=-1) * cfg.vdd
+    if cfg.noisy and generator is not None:
+        sigma_v = cfg.sigma_dac_mv * 1e-3 * (cfg.vdd / 0.6)
+        v = v + sigma_v * standard_normal(v.shape, generator, v.device)
+    return v
 
 
 def dac_value(v: torch.Tensor, cfg) -> torch.Tensor:

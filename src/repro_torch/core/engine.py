@@ -350,11 +350,13 @@ def _behavioral_int(x_codes, plan, cfg, generator):
 
 
 def _cuda_int(x_codes, plan, cfg, generator):
-    del generator  # the kernel is noiseless by design
+    # The kernels are noiseless: dispatch refuses a noise request to them
+    # rather than drop the generator.
     from repro_torch.kernels import dispatch
 
     return dispatch.dispatch(
-        x_codes, plan.codes, cfg, backend="cuda", planes=plan.planes
+        x_codes, plan.codes, cfg, backend="cuda", generator=generator,
+        planes=plan.planes
     )
 
 

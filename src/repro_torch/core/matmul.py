@@ -39,7 +39,9 @@ def cim_matmul_int(
       x_codes: [M, K] unsigned activation codes in [0, 2^act_bits).
       w_codes: [K, N] signed weight codes (weight_bits wide).
       cfg: macro operating point (rows_active = group size).
-      generator: hardware-noise request (raises; see adc_transfer_int).
+      generator: hardware-noise source when ``cfg.noisy``: one draw of
+        [M, B, N] per group, in group order, from this one generator
+        (the reference folds one key in per group instead).
       planes: optional plan planes in the grouped layout of
         ``engine.plan_weights`` (zero-padded along K): unpacked
         [G, weight_bits, rows_active, N] 0/1 planes, or bit-packed

@@ -15,8 +15,11 @@ specs (:class:`DACSpec`, :class:`AMUSpec`, :class:`ADCSpec`).
 quantities), so every consumer of an operating point takes either;
 ``MacroSpec.from_config`` / ``to_config`` convert losslessly. The macro
 variants of ``core.variants`` are pipelines with swapped stages.
-Hardware-noise injection comes with slice 4 of ROADMAP.md: a noisy run
-with a generator raises in the DAC and ADC stages.
+
+Hardware noise: ``run(..., generator=)`` on a ``noisy`` spec threads one
+``torch.Generator`` through the state; the DAC stage draws one error per
+row, then the ADC stage its comparator offsets, in stage order (the
+reference splits its key into a DAC and an ADC key instead).
 """
 
 from __future__ import annotations
@@ -319,7 +322,7 @@ class MacroState:
       adc_codes  [n_out, B] int32 flash codes (ADC)
       outputs    [n_out] f32 digital shift-add results (ShiftAdd)
       pmac_ideal [n_out, B] int32 noiseless reference partial MACs
-      generator  hardware-noise request (raises; slice 4)
+      generator  hardware-noise source (DAC, then ADC draws)
     """
 
     x_codes: Any = None

@@ -36,8 +36,9 @@ Each variant bundles:
   outputs per macro, not 8). Noise-free codes equal the P-8T floor
   transfer.
 
-Hardware-noise injection comes with slice 4 of ROADMAP.md: a noisy
-operating point with a generator raises.
+Hardware noise (a ``noisy`` spec with a ``torch.Generator``) enters the
+merged conversion in the merged domain and the cell-embedded SAR as one
+comparator offset per conversion.
 """
 
 from __future__ import annotations
@@ -134,12 +135,15 @@ def merged_transfer_int(
 
     ``floor(merged / step (+ 1/2))`` in float32 with a correctly rounded
     division, so a negative exact multiple of the step reads its own
-    code on every device.
+    code on every device. With ``spec.noisy`` and a generator,
+    ``merged_sigma`` Gaussian noise is added first, one draw per element.
     """
     spec = as_spec(spec)
-    dac_lib._refuse_noise(spec, generator)
     mq = merged_quant(spec)
     x = merged.to(torch.float32)
+    if spec.noisy and generator is not None:
+        x = x + merged_sigma(spec) * dac_lib.standard_normal(
+            x.shape, generator, x.device)
     half = 0.5 if spec.adc_mode == "nearest" else 0.0
     code = torch.floor(quant.true_divide(x, mq.step) + half)
     return torch.clamp(code, mq.code_min, mq.code_max).to(torch.int32)
@@ -268,10 +272,11 @@ def adder_tree_matmul_int(
     takes the plan layouts of ``engine.plan_weights`` (unpacked
     [G, B, rows, N] or bit-packed [G, rows, N] uint8) grouped at
     ``cfg.rows_active``. A Python loop over the G groups; peak memory is
-    one [M, B*N] group tile.
+    one [M, B*N] group tile. Noise (``spec.noisy`` with a generator) is
+    drawn from the one generator in group order, [M, N] per group (the
+    reference folds one key in per group instead).
     """
     spec = as_spec(cfg)
-    dac_lib._refuse_noise(spec, generator)
     m, k = x_codes.shape
     rows = spec.rows_active
     b = spec.weight_bits
@@ -315,7 +320,8 @@ def adder_tree_matmul_int(
         flat = group_planes(gi).to(torch.float32).permute(1, 0, 2)
         pmac = (x_g[gi] @ flat.reshape(rows, b * n)).reshape(m, b, n)
         merged = _merge_planes(pmac, b, dim=1)
-        acc = acc + merged_dequant(merged_transfer_int(merged, spec), spec)
+        code = merged_transfer_int(merged, spec, generator=generator)
+        acc = acc + merged_dequant(code, spec)
     return acc
 
 
@@ -331,20 +337,26 @@ class CellADCStage:
     The reference levels come from memory cells of dedicated reference
     rows (the charge-ratio machinery of ``adc.reference_voltages``), and
     ONE comparator per column binary-searches the ``adc_bits`` decisions
-    against them. Noise-free codes equal the flash floor transfer.
+    against them. Noise-free codes equal the flash floor transfer. A
+    noisy spec with a generator draws one input-referred offset per
+    conversion (the one comparator is reused for every SAR decision).
     """
 
     name: str = "adc"
 
     def __call__(self, state: MacroState, spec: MacroSpec) -> MacroState:
-        dac_lib._refuse_noise(spec, state.generator)
         v = state.v_abl
         vrefs = adc_lib.reference_voltages(spec, v.device)  # [2**bits]
         eps = spec.vdd * 1e-6
+        offs = torch.zeros_like(v)
+        if spec.noisy and state.generator is not None:
+            sigma_v = spec.sigma_cmp_mv * 1e-3 * (spec.vdd / 0.6)
+            offs = sigma_v * dac_lib.standard_normal(
+                v.shape, state.generator, v.device)
         code = torch.zeros(v.shape, dtype=torch.int32, device=v.device)
         for bit in range(spec.adc_bits - 1, -1, -1):
             trial = torch.bitwise_or(code, 1 << bit)
-            take = v <= vrefs[trial.long()] + eps
+            take = v <= vrefs[trial.long()] + offs + eps
             code = torch.where(take, trial, code)
         return state.evolve(adc_codes=code)
 
@@ -492,6 +504,11 @@ def get(name: str) -> MacroVariant:
 
 def names() -> tuple[str, ...]:
     return tuple(sorted(_VARIANTS))
+
+
+def get_pipeline(name: str) -> AnalogPipeline:
+    """The variant's AnalogPipeline (the stage-swap view)."""
+    return get(name).pipeline
 
 
 for _v in (P8T, ADDER_TREE, CELL_ADC):

@@ -35,8 +35,10 @@ Resolution order when no backend is requested explicitly:
 
 There is no autotune cache yet (ROADMAP slice 5), so no "tuned" source.
 An explicit ``backend=`` request is always honored and any error it
-raises propagates; an implicit pick that raises the kernel's depth
-guard (``DepthGuardError``, a ``ValueError``) falls back to the scan and
+raises propagates; a noise request to an explicit backend that cannot
+draw noise (ref, slots, cuda) raises rather than run noiseless. An
+implicit pick that raises the kernel's depth guard
+(``DepthGuardError``, a ``ValueError``) falls back to the scan and
 is recorded as "guard-fallback", and one whose operating point the
 kernel does not take (``KernelSpecError``: B1, B2 and B3 at act_bits >
 8 or over 32 active rows) as "spec-fallback". Build, launch and operand
@@ -282,6 +284,11 @@ def dispatch(
             f"backend='{backend}' (cell={cell}, dtype={dtype}); "
             f"registered backends for this variant: {backends_for(variant)}"
         )
+    if noisy and not impl.supports_noise:
+        raise ValueError(
+            f"backend '{backend}' of variant '{variant}' is noiseless and "
+            "cannot take the hardware-noise request (a noisy spec with a "
+            "generator); leave the backend implicit to run the scan")
     _notify(Resolution(key=KernelKey(variant, backend, cell, dtype),
                        source=source))
 
@@ -298,7 +305,7 @@ def dispatch(
 
     def run(chosen: KernelImpl):
         kwargs: dict[str, Any] = dict(
-            generator=generator if chosen.supports_noise else None,
+            generator=generator if noisy else None,
             planes=planes_for(chosen),
         )
         if chosen.supports_slots:

@@ -31,6 +31,24 @@ class KVCache(NamedTuple):
     v: torch.Tensor  # [B, C, KVH, hd]
 
 
+# The largest magnitude that rounds into float8_e4m3fn's finite range
+# (448 plus half its last step; a tie at 464 rounds to even, 448).
+_E4M3_ROUNDS_FINITE = 464.0
+
+
+def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as the cache's storage dtype, converted as the JAX package's
+    ``astype`` converts: torch saturates float8_e4m3fn at +-448, while the
+    JAX package gives NaN beyond the finite range and for +-inf, with the
+    input's sign (bytes 0x7F and 0xFF)."""
+    y = x.to(dtype)
+    if dtype != torch.float8_e4m3fn:
+        return y
+    nan = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.uint8)
+    beyond = ~(x.abs() <= _E4M3_ROUNDS_FINITE)  # NaN and +-inf too
+    return torch.where(beyond, nan, y.view(torch.uint8)).view(dtype)
+
+
 def attn_spec(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     return {
@@ -198,8 +216,8 @@ def prefill_cache(
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     c = cache.k.shape[1]
-    kc = k.to(cache.k.dtype)  # the cache may be fp8 (storage dtype)
-    vc = v.to(cache.v.dtype)
+    kc = to_cache_dtype(k, cache.k.dtype)  # the cache may be fp8
+    vc = to_cache_dtype(v, cache.v.dtype)
     if window and c == window:
         # Keep the last `window` tokens, slot = pos % window.
         take = min(s, window)
@@ -243,8 +261,8 @@ def decode_step(
     else:
         slot = min(pos, c - 1)  # the JAX package's update clamps
         valid = slots <= pos
-    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    cache.k[:, slot] = to_cache_dtype(k[:, 0], cache.k.dtype)
+    cache.v[:, slot] = to_cache_dtype(v[:, 0], cache.v.dtype)
     out = _gqa_core(q, cache.k, cache.v, valid[None, None, None, None, :])
     return _out_proj(params, out, cfg, policy), cache
 

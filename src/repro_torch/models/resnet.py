@@ -253,16 +253,20 @@ def top1_accuracy(
     labels: torch.Tensor,
     cfg: ResNetConfig,
     *,
+    generator: torch.Generator | None = None,
     batch_size: int | None = None,
 ) -> float:
     """Held-out top-1 accuracy of (possibly planned) params, every conv
-    on its real execution path under ``cfg.cim``."""
+    on its real execution path under ``cfg.cim``. A ``generator`` (the
+    reference's ``key``) feeds a noisy operating point's hardware errors,
+    batch after batch, so a seeded generator makes the result
+    deterministic."""
     n = int(images.shape[0])
     bs = n if batch_size is None else int(batch_size)
     correct = 0
     for s in range(0, n, bs):
         logits, _ = forward(params, bn_state, images[s:s + bs], cfg,
-                            train=False)
+                            train=False, generator=generator)
         pred = torch.argmax(logits, dim=-1)
         correct += int((pred == labels[s:s + bs].to(pred.device)).sum())
     return correct / n

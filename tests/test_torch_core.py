@@ -211,11 +211,25 @@ def test_adc_transfer_bit_exact(kw, mode):
 
 
 def test_noisy_adc_request_raises_naming_the_slice():
+    """Since slice 4 a noisy request draws from its generator: no
+    generator is noiseless, as the reference without a key; one seed
+    gives one draw; a generator on another device than the tensor
+    raises, naming both."""
     cfg = TConfig(noisy=True)
-    pmac = torch.arange(10)
-    tadc.adc_transfer_int(pmac, cfg)  # no generator: noiseless, as ref
-    with pytest.raises(ValueError, match="slice 4"):
-        tadc.adc_transfer_int(pmac, cfg, generator=torch.Generator())
+    pmac = torch.arange(4096) % 200
+    quiet = tadc.adc_transfer_int(pmac, cfg)
+    assert torch.equal(quiet, tadc.adc_transfer_int(pmac, TConfig()))
+    a = tadc.adc_transfer_int(pmac, cfg,
+                              generator=torch.Generator().manual_seed(1))
+    b = tadc.adc_transfer_int(pmac, cfg,
+                              generator=torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and not torch.equal(a, quiet)
+
+    class _Elsewhere:
+        device = torch.device("cuda")
+
+    with pytest.raises(ValueError, match="cuda generator"):
+        tadc.adc_transfer_int(pmac, cfg, generator=_Elsewhere())
 
 
 def _codes(rng, m, k, n, weight_bits=8):

@@ -17,6 +17,7 @@ from repro.core import engine as jengine
 from repro.core.params import CIMConfig as JConfig
 from repro_torch.configs.base import CIMPolicy as TPolicy
 from repro_torch.core import engine as tengine
+from repro_torch.core import matmul as tmatmul
 from repro_torch.core.params import CIMConfig as TConfig
 from repro_torch.kernels import cim_mac, dispatch
 
@@ -173,12 +174,24 @@ def test_heuristic_on_cpu_takes_scan_or_slots():
 
 
 def test_noise_request_routes_to_scan_and_raises():
+    """A noisy spec with a generator routes an implicit pick to the scan
+    (source "noise"), which draws from the generator; an explicit
+    noiseless backend (ref, slots, cuda) raises rather than drop it."""
     x, w = _codes(4, 16, 2)
-    with dispatch.record_resolutions() as log, \
-            pytest.raises(ValueError, match="slice 4"):
-        dispatch.dispatch(x, w, TConfig(noisy=True),
-                          generator=torch.Generator())
-    assert [(r.key.backend, r.source) for r in log] == [("scan", "noise")]
+    cfg = TConfig(noisy=True)
+    with dispatch.record_resolutions() as log:
+        a = dispatch.dispatch(x, w, cfg,
+                              generator=torch.Generator().manual_seed(3))
+        b = dispatch.dispatch(x, w, cfg,
+                              generator=torch.Generator().manual_seed(3))
+    assert [(r.key.backend, r.source) for r in log] == [("scan", "noise")] * 2
+    assert torch.equal(a, b)
+    assert torch.equal(a, tmatmul.cim_matmul_int(
+        x, w, cfg, generator=torch.Generator().manual_seed(3)))
+    for backend in ("ref", "cuda"):
+        with pytest.raises(ValueError, match="noiseless"):
+            dispatch.dispatch(x, w, cfg, backend=backend,
+                              generator=torch.Generator())
 
 
 def test_implicit_kernel_depth_guard_falls_back_and_is_recorded(monkeypatch):

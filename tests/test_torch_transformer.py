@@ -190,6 +190,28 @@ def test_norms_rope_and_mlp_match_reference(dtype):
         # Two chained matmuls of 64 and 96 terms: two bfloat16 steps.
         t2 = 2 * RTOL[dtype] if dtype == "bfloat16" else 1e-5
         np.testing.assert_allclose(_np(got), _np(want), rtol=t2, atol=t2)
+    # gelu alone, bit for bit in bfloat16 over every finite input below 64
+    # in magnitude (subnormals included: XLA flushes them), and to one
+    # float32 ulp of tanh in float32.
+    if dtype == "bfloat16":
+        u = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+            torch.int16).view(torch.bfloat16)
+        u = u[torch.isfinite(u) & (u.abs() < 64)]
+        assert u.numel() == 34048
+        ju = jnp.asarray(u.view(torch.int16).numpy()).view(jnp.bfloat16)
+    else:
+        u = torch.from_numpy(rng.standard_normal(4096).astype(np.float32)
+                             * 8)
+        ju = jnp.asarray(u.numpy())
+    got = tcommon._gelu_tanh(u)
+    want = jax.nn.gelu(ju)
+    assert got.dtype == u.dtype
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                      np.asarray(want).view(np.int16))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
@@ -537,18 +559,32 @@ def test_ring_cache_window_semantics_gemma3():
 
 
 def test_fp8_kv_cache_contents():
-    """kv_cache_dtype float8_e4m3fn: the conversion is bit for bit the
-    reference's on the same float32 values; end to end (qwen2 SMOKE,
-    float32 activations, 15 prefilled tokens) the caches are fp8 and every
-    entry is within one e4m3 step (2**-3 relative) of the reference's,
-    where the float32 projections summed in another order."""
+    """kv_cache_dtype float8_e4m3fn: the cache conversion is bit for bit
+    the reference's ``astype`` on the same float32 values, out of range
+    too (|x| in (448, 1e4], +-inf and NaN of both signs, which the
+    reference turns into NaN where torch's own conversion saturates), and
+    on every bfloat16 bit pattern; end to end (qwen2 SMOKE, float32
+    activations, 15 prefilled tokens) the caches are fp8 and every entry
+    is within one e4m3 step (2**-3 relative) of the reference's, where
+    the float32 projections summed in another order."""
     rng = np.random.default_rng(6)
-    x = np.concatenate([rng.standard_normal(4096) * 4,
+    wide = rng.uniform(448.0, 1e4, 2048)
+    x = np.concatenate([rng.standard_normal(4096) * 4, wide, -wide,
                         np.array([0.0, 448.0, -448.0, 1 / 1024, 0.3125,
-                                  1.0625, 17.0])]).astype(np.float32)
-    np.testing.assert_array_equal(
-        torch.from_numpy(x).to(torch.float8_e4m3fn).view(torch.uint8).numpy(),
-        np.asarray(jnp.asarray(x).astype(jnp.float8_e4m3fn)).view(np.uint8))
+                                  1.0625, 17.0, 463.99997, 464.0, -464.0,
+                                  464.00003, -464.00003, 1e4, -1e4, np.inf,
+                                  -np.inf, np.nan, -np.nan])
+                        ]).astype(np.float32)
+    bf16 = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    for tx, jx in ((torch.from_numpy(x), jnp.asarray(x)),
+                   (bf16, jnp.asarray(bf16.view(torch.int16).numpy()).view(
+                       jnp.bfloat16))):
+        got = tattn.to_cache_dtype(tx, torch.float8_e4m3fn)
+        assert got.dtype == torch.float8_e4m3fn
+        np.testing.assert_array_equal(
+            got.view(torch.uint8).numpy(),
+            np.asarray(jx.astype(jnp.float8_e4m3fn)).view(np.uint8))
     jc, tc = _cfgs("fp", "float32", kv_cache_dtype="float8_e4m3fn")
     jp = jt.init(jax.random.PRNGKey(3), jc)
     tp = convert.to_torch(jax.tree.map(np.asarray, jp), device="cpu")
