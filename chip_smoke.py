@@ -28,8 +28,10 @@ file; it exits non-zero without either. Phases (each one fails the run):
               on an operand whose group sums take every merged value at
               cutoffs 0.5, 0.25, 0.3, 0.35 and 0.4 (steps that are not
               whole, where float32 division and exact arithmetic part),
-              and the ResNet's own 14 operands at batch 256, on which B3
-              must also equal B1. Then each depth guard must raise.
+              the ResNet's own 14 operands at batch 256, on which B3
+              must also equal B1, and each column tile (bn 16, 32, 64)
+              forced on shapes narrower and wider than it. Then each depth
+              guard must raise.
   4. slice    slice 1's path: the committed ResNet checkpoint (widths
               16/32/64, two blocks per stage), planned under the paper
               policy, on 4 batches of 256 synthetic eval images under fp,
@@ -101,7 +103,41 @@ file; it exits non-zero without either. Phases (each one fails the run):
               equal; core.noise's four studies card against CPU; top-1
               and modelled TOPS/W of the seed and refined plans over
               1024 images; each kernel's time per eval beside its bound.
-  9. report   one JSON line listing every kernel of the port and its
+  9. whisper  whisper-tiny at its published widths and depth (4 + 4 layers,
+              d_model 384, 6 heads, d_ff 1536, vocab 51865, bfloat16;
+              random weights from torch.Generator seed 0; stub frontend
+              frames 0.1 N(0, 1) of [4, 1500, 384]) under the paper policy:
+              B1 == plain (torch.equal) on the first encoder layer's 6
+              operands (M = 6000) and the first decoder layer's 10 in a
+              decode step (cross K/V at M = 6000, the rest at M = 4), floor
+              and nearest; encode -> prefill(memory=) -> 8 greedy
+              decode_step(memory=) with cim-kernel logits == the scan
+              twin's and 24 (p8t, cuda) resolutions and B1 launches in the
+              encoder, 40 per decode step; the card against the CPU path at
+              depth 1 + 1 (full width, float32, one prompt); greedy
+              generation of 32 tokens after 64-token MarkovLM prompts under
+              fp (int8 weight-only), cim-exact and cim-kernel (tokens/s,
+              encode, prefill and decode ms on the host clock); B1's time
+              per operand beside its bound; one decode step under
+              torch.profiler.
+ 10. vlm      internvl2-2b at its published widths and depth (24 layers,
+              d_model 2048, 16/8 heads, d_ff 8192, vocab 92553):
+              forward_train with 256 patch embeddings prepended to 64 text
+              tokens, cim-kernel logits == the scan twin's, 168 B1 launches;
+              ServeEngine.generate on text; B1 == plain and its time on the
+              decode step's operands.
+ 11. autotune kernels.autotune on the card over the three variants at one
+              shape per tuning cell of qwen2-0.5b's and whisper's decode,
+              whisper's encoder and a ResNet conv: every candidate (scan,
+              ref, slots, the kernel at bn 16, 32, 64) == the scan twin
+              (torch.equal), the time of each, the winners, the cache saved
+              under build/chip_smoke/autotune/ and read back; then whisper
+              encode + prefill + 2 decode steps under cim (implicit
+              dispatch) with the cache active: "tuned" resolutions, logits
+              == the heuristic run's; a 32-row call in a pinned cell runs
+              the kernel at the pin's bn with bk 32, == the scan; an
+              operand fault under a pin (w left on the host) raises.
+ 12. report   one JSON line listing every kernel of the port and its
               launches on each path.
 
 The last line is {"ok": true, "device": {...}}.
@@ -137,6 +173,28 @@ LM_SCAN_STEPS = 8  # decode steps held to the scan twin
 LM_PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 LM_SCHEDULE = ((4, 6), (8, 4), (3, 8), (6, 5), (5, 7))  # serve_cim.py's
 DEVICE = "cuda"  # phase 8's device (a CPU rehearsal sets "cpu")
+# Phase 9: whisper-tiny, encoder-decoder, at its published widths and depth.
+WH_ARCH = "whisper_tiny"
+WH_BATCH, WH_PROMPT, WH_GEN = 4, 64, 32
+WH_SCAN_STEPS = 8  # decode steps held to the scan twin
+WH_CPU_STEPS = 8  # decode steps of the card-against-CPU check
+# B1's operands per layer, in call order: the encoder's, and a decoder
+# step's (the cross-attention K/V of the memory first, then self-attention,
+# cross-attention and the MLP).
+WH_ENCODER_OPS = ("wq", "wk", "wv", "wo", "up", "down")
+WH_DECODE_OPS = ("xattn-wk", "xattn-wv", "wq", "wk", "wv", "wo", "xattn-wq",
+                 "xattn-wo", "up", "down")
+# Phase 10: internvl2-2b at its published widths and depth.
+VLM_ARCH = "internvl2_2b"
+VLM_LAYERS = 24
+VLM_BATCH, VLM_TEXT, VLM_GEN = 2, 64, 16
+# Phase 11: one shape per tuning cell of the paths above.
+AT_SHAPES = (
+    (4, 896, 896), (4, 896, 128), (4, 896, 4864), (4, 4864, 896),  # qwen2
+    (4, 384, 384), (4, 384, 1536), (4, 1536, 384),  # whisper decode
+    (6000, 384, 384), (6000, 384, 1536), (6000, 1536, 384),  # its encoder
+    (16384, 576, 64),  # ResNet stage-3 conv at batch 256
+)
 # Phase 8: benchmarks/pareto.py's full profile (--resnet, not --quick).
 CAL_IMAGES, HELD_OUT = 256, 64
 VARIANTS_ALL = ("p8t", "adder-tree", "cell-adc")
@@ -497,6 +555,24 @@ def phase_kernel(params, bn, images):
                                   device="cuda", dtype=torch.int8)
                 for kern in KERNELS:
                     check(kern, x, w, cfg, f"{kw} {mode} {(m, k, n)}")
+    # Each column tile the kernel is built for, forced (a tuned pin's bn),
+    # on shapes narrower and wider than it.
+    for tile in (16, 32, 64):
+        cfg = CIMConfig()
+        for m, k, n in ((37, 100, 21), (300, 17, 70), (4099, 32, 64),
+                        (130, 576, 200)):
+            x = torch.randint(0, 16, (m, k), generator=gen, device="cuda",
+                              dtype=torch.int32)
+            w = torch.randint(-128, 128, (k, n), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            for kern in KERNELS:
+                want = kern.plain()(x, w, cfg)
+                got = kern.wrapper()(x, w, cfg, bn=tile)
+                torch.cuda.synchronize()
+                checks += 1
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{kern.name} at bn {tile} != plain "
+                                         f"at {(m, k, n)}")
     b1, b2, b3 = KERNELS
     x, w = merged_range_operand(CIMConfig())
     for cutoff in (0.5, 0.25, 0.3, 0.35, 0.4):
@@ -799,12 +875,13 @@ def phase_timings(ops, spec):
     return rows
 
 
-def lm_cfg(mode: str, **kw):
-    """qwen2-0.5b's published CONFIG under ``mode`` at the paper point."""
+def lm_cfg(mode: str, arch: str = LM_ARCH, **kw):
+    """``arch``'s published CONFIG (qwen2-0.5b's by default) under
+    ``mode`` at the paper point."""
     from repro_torch.configs.base import CIMPolicy, get_config
     from repro_torch.core.params import PAPER_OP_16ROWS
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
     if mode != "fp":
         cfg = cfg.replace(cim=CIMPolicy(mode=mode, cim=PAPER_OP_16ROWS))
     return cfg.replace(**kw)
@@ -948,26 +1025,12 @@ def phase_lm():
                                                              pre)]
     ops += [(f"decode {p}", x, w) for p, (_, x, w, _) in zip(LM_PROJECTIONS,
                                                             dec)]
-    max_err = 0.0
     for name, x, w in ops:
         m = LM_BATCH * (LM_PROMPT if name.startswith("prefill") else 1)
         if x.shape[0] != m or x.dtype != torch.int32 or w.dtype != torch.int8:
             raise AssertionError(f"{name}: operand {tuple(x.shape)} "
                                  f"{x.dtype} x {tuple(w.shape)} {w.dtype}")
-        for mode in ("floor", "nearest"):
-            cfg = spec.replace(adc_mode=mode)
-            want = cim_mac.gpq_matmul_plain(x, w, cfg)
-            got = cim_mac.gpq_matmul(x, w, cfg)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            max_err = max(max_err, err)
-            if not torch.equal(got, want):
-                raise AssertionError(f"gpq_matmul != plain at LM {name} "
-                                     f"{mode}: max |err| {err}")
-    log(f"[lm] gpq_matmul == plain (torch.equal) on the {len(ops)} LM "
-        f"operands, floor and nearest: " + ", ".join(
-            f"{nm} [{x.shape[0]}, {x.shape[1]}]x[{w.shape[0]}, "
-            f"{w.shape[1]}]" for nm, x, w in ops))
+    max_err = _b1_equal_plain(ops, spec, "lm")
 
     # The kernel path against the scan twin, step by step.
     resolutions, launches = [], []
@@ -1078,18 +1141,20 @@ def phase_lm():
         f"requests, {sum(got.values())} tokens in {secs:.2f} s")
     del eng, batcher
 
-    timings = lm_timings(ops, spec, cfg_k.n_layers)
+    timings = b1_timings(ops, spec, cfg_k.n_layers)
     lm_profile(planned, cfg_k, prompts)
     return gen_launches, max_err, timings
 
 
-def lm_timings(ops, spec, n_layers: int) -> dict:
-    """B1 per LM operand (as phase 6), and per decode step and per
-    prefill: the 7 launches of a layer times ``n_layers``."""
+def b1_timings(ops, spec, n_layers: int, tag: str = "lm-timing") -> dict:
+    """B1 per operand of one layer (as phase 6), and per kind (the first
+    word of each operand's name: prefill, decode, encoder): the layer's
+    launches of that kind times ``n_layers``."""
     from repro_torch.kernels import cim_mac
 
-    sums = {"prefill": [0.0] * 4, "decode": [0.0] * 4}
-    by = {"prefill": [0, 0], "decode": [0, 0]}
+    sums = collections.defaultdict(lambda: [0.0] * 4)
+    by = collections.defaultdict(lambda: [0, 0])
+    count = collections.Counter()
     for name, x, w in ops:
         m, k = x.shape
         n = w.shape[1]
@@ -1103,11 +1168,12 @@ def lm_timings(ops, spec, n_layers: int) -> dict:
         ops_ms = 2 * m * k * n * spec.weight_bits / INT8_OPS_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
         kind = name.split()[0]
+        count[kind] += 1
         for i, v in enumerate((ms, plain_ms, bound, device_ms)):
             sums[kind][i] += v * n_layers
         by[kind][bytes_ms >= ops_ms] += 1
         what = "bytes" if bytes_ms >= ops_ms else "operations"
-        log(f"[lm-timing] gpq_matmul {name:13s} [{m}, {k}]x[{k}, {n}]: "
+        log(f"[{tag}] gpq_matmul {name:16s} [{m}, {k}]x[{k}, {n}]: "
             f"kernel {ms:.4f} ms over back-to-back wrapper calls "
             f"({device_ms:.4f} device ms in a graph), plain {plain_ms:.4f} "
             f"ms, bound {bound:.4f} ms ({what}; {nbytes / 1e6:.2f} MB, "
@@ -1116,36 +1182,29 @@ def lm_timings(ops, spec, n_layers: int) -> dict:
     for kind, (ms, plain_ms, bound, device_ms) in sums.items():
         bound_by = "bytes" if by[kind][1] >= by[kind][0] else "operations"
         out[kind] = (ms, plain_ms, bound, bound_by, device_ms)
-        log(f"[lm-timing] gpq_matmul per {kind} ({n_layers} layers x "
-            f"{len(LM_PROJECTIONS)} launches): kernel {ms:.4f} ms over "
+        log(f"[{tag}] gpq_matmul per {kind} ({n_layers} layers x "
+            f"{count[kind]} launches): kernel {ms:.4f} ms over "
             f"back-to-back wrapper calls ({device_ms:.4f} device ms in a "
             f"graph), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
             f"({bound_by})")
     return out
 
 
-def lm_profile(planned, cfg, prompts):
-    """One cim-kernel decode step under torch.profiler (reported, never
-    failed, as phase 4's window)."""
+def profile_window(tag: str, what: str, fn):
+    """``fn()`` once under torch.profiler (reported, never failed, as
+    phase 4's window): the window on the host clock, the device's busy
+    share of it and the top 10 device ops."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import transformer
-
-    b, s = prompts.shape
-    caches = transformer.init_caches(cfg, b, s + 3, device="cuda")
-    with torch.no_grad():
-        logits, _ = transformer.prefill(planned, prompts, caches, cfg)
-        tok = logits.argmax(-1)
-        transformer.decode_step(planned, tok, s, caches, cfg)  # warm
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            transformer.decode_step(planned, tok, s + 1, caches, cfg)
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
+        window_ms = (time.perf_counter() - t0) * 1e3
     rows = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -1155,17 +1214,34 @@ def lm_profile(planned, cfg, prompts):
         if us > 0:
             rows.append((us / 1e3, e.count, e.key))
     if not rows:
-        log(f"[lm-profile] no device time in the trace ({window_ms:.2f} ms "
+        log(f"[{tag}] no device time in the trace ({window_ms:.2f} ms "
             f"window): not attributed")
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[lm-profile] one cim-kernel decode step at batch {b}: "
-        f"{window_ms:.3f} ms window (host clock), device busy {busy:.3f} ms "
-        f"= {100 * busy / window_ms:.1f}% of it; top 10 device ops:")
+    log(f"[{tag}] {what}: {window_ms:.3f} ms window (host clock), device "
+        f"busy {busy:.3f} ms = {100 * busy / window_ms:.1f}% of it; top 10 "
+        f"device ops:")
     for ms, count, key in rows[:10]:
-        log(f"[lm-profile]   {ms:9.4f} ms {100 * ms / busy:5.1f}% "
+        log(f"[{tag}]   {ms:9.4f} ms {100 * ms / busy:5.1f}% "
             f"x{count:<4d} {key[:100]}")
+
+
+def lm_profile(planned, cfg, prompts):
+    """One cim-kernel decode step under torch.profiler."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    b, s = prompts.shape
+    caches = transformer.init_caches(cfg, b, s + 3, device="cuda")
+    with torch.no_grad():
+        logits, _ = transformer.prefill(planned, prompts, caches, cfg)
+        tok = logits.argmax(-1)
+        transformer.decode_step(planned, tok, s, caches, cfg)  # warm
+    profile_window("lm-profile", f"one cim-kernel decode step at batch {b}",
+                   lambda: transformer.decode_step(planned, tok, s + 1,
+                                                   caches, cfg))
 
 
 @contextlib.contextmanager
@@ -1181,9 +1257,9 @@ def capture_kernel_operands():
     got = []
 
     def wrap(kname):
-        def rec(x, w, spec):
+        def rec(x, w, spec, **kw):
             got.append((kname, x, w, spec))
-            return real[kname](x, w, spec)
+            return real[kname](x, w, spec, **kw)
         return rec
 
     for k, a in names.items():
@@ -1456,11 +1532,507 @@ def phase_calibration(params, bn, batches):
     return entries
 
 
+def wh_steps(params, cfg, frames, prompts, steps: int, on_step=None):
+    """encode, prefill(memory=), then ``steps`` greedy decode steps: the
+    logits of the prefill and of each step. ``on_step(i, fn)`` wraps each
+    stage (i = 0 the encoder, 1 the prefill, i >= 2 the decode steps)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    b, s = prompts.shape
+    caches = transformer.init_caches(
+        cfg, b, s + steps + 1, dtype=getattr(torch, cfg.activation_dtype),
+        device=frames.device)
+    run = on_step or (lambda i, fn: fn())
+    with torch.no_grad():
+        memory = run(0, lambda: transformer.encode(params, frames, cfg,
+                                                   cfg.cim))
+        logits, _ = run(1, lambda: transformer.prefill(
+            params, prompts, caches, cfg, memory=memory))
+        out = [logits]
+        for i in range(steps):
+            tok = logits.argmax(-1)
+            logits, _ = run(i + 2, lambda tok=tok, i=i: transformer.decode_step(
+                params, tok, s + i, caches, cfg, memory=memory))
+            out.append(logits)
+    return out
+
+
+def _tokens(logits):
+    import torch
+
+    return torch.stack([lg.argmax(-1) for lg in logits], 1).cpu().numpy()
+
+
+def _b1_equal_plain(ops, spec, tag: str) -> float:
+    """B1 == its plain version (torch.equal) on each captured operand,
+    floor and nearest; the max |err|."""
+    import torch
+
+    from repro_torch.kernels import cim_mac
+
+    max_err = 0.0
+    for name, x, w in ops:
+        for mode in ("floor", "nearest"):
+            cfg = spec.replace(adc_mode=mode)
+            want = cim_mac.gpq_matmul_plain(x, w, cfg)
+            got = cim_mac.gpq_matmul(x, w, cfg)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            if not torch.equal(got, want):
+                raise AssertionError(f"gpq_matmul != plain at {tag} {name} "
+                                     f"{mode}: max |err| {err}")
+            del want, got
+    log(f"[{tag}] gpq_matmul == plain (torch.equal) on the {len(ops)} "
+        f"operands, floor and nearest: " + ", ".join(
+            f"{nm} [{x.shape[0]}, {x.shape[1]}]x[{w.shape[0]}, "
+            f"{w.shape[1]}]" for nm, x, w in ops))
+    return max_err
+
+
+def phase_whisper():
+    """whisper-tiny's encoder-decoder served through B1 (see the module
+    docstring). Returns (the kernels-line entries, what phase 11 reuses)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import cim_mac, dispatch
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    cfg_k = lm_cfg("cim-kernel", arch=WH_ARCH)
+    spec = cfg_k.cim.cim
+    if cfg_k.n_encoder_layers != cfg_k.n_layers:
+        raise AssertionError("b1_timings takes one depth for both stacks")
+    per_enc = cfg_k.n_encoder_layers * len(WH_ENCODER_OPS)
+    per_step = cfg_k.n_layers * len(WH_DECODE_OPS)
+    params = transformer.init(0, cfg_k, device="cuda")
+    planned = engine.plan_params(params, policy=cfg_k.cim)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frames = 0.1 * torch.randn((WH_BATCH, cfg_k.frontend_seq, cfg_k.d_model),
+                               generator=gen, device="cuda")
+    prompts = torch.from_numpy(MarkovLM(cfg_k.vocab_size, seed=0).sample(
+        WH_BATCH, WH_PROMPT - 1, seed=0)).long().cuda()
+    torch.cuda.synchronize()
+    log(f"[whisper] {cfg_k.name}: {_tree_numel(params) / 1e6:.2f} M "
+        f"parameters ({cfg_k.n_encoder_layers} + {cfg_k.n_layers} layers, "
+        f"d_model {cfg_k.d_model}, {cfg_k.n_heads} heads, d_ff "
+        f"{cfg_k.d_ff}, vocab {cfg_k.vocab_size} padded to "
+        f"{cfg_k.padded_vocab}, {cfg_k.activation_dtype}); frames "
+        f"{tuple(frames.shape)}, prompts {tuple(prompts.shape)}")
+
+    # B1 against its plain version on whisper's own operands: the first
+    # encoder layer's (M = B x 1500) and the first decoder layer's in one
+    # decode step (the cross K/V at M = B x 1500, the rest at M = B).
+    with torch.no_grad():
+        with capture_kernel_operands() as enc:
+            memory = transformer.encode(planned, frames, cfg_k, cfg_k.cim)
+        caches = transformer.init_caches(cfg_k, WH_BATCH, WH_PROMPT + 2,
+                                         device="cuda")
+        logits, _ = transformer.prefill(planned, prompts, caches, cfg_k,
+                                        memory=memory)
+        with capture_kernel_operands() as dec:
+            transformer.decode_step(planned, logits.argmax(-1), WH_PROMPT,
+                                    caches, cfg_k, memory=memory)
+    if len(enc) != per_enc or len(dec) != per_step:
+        raise AssertionError(f"{len(enc)} encoder and {len(dec)} decode "
+                             f"operands, want {per_enc} and {per_step}")
+    m_enc = WH_BATCH * cfg_k.frontend_seq
+    ops = [(f"encoder {p}", x, w)
+           for p, (_, x, w, _) in zip(WH_ENCODER_OPS, enc)]
+    ops += [(f"decode {p}", x, w)
+            for p, (_, x, w, _) in zip(WH_DECODE_OPS, dec)]
+    for name, x, w in ops:
+        memory_side = name.startswith("encoder") or name in (
+            "decode xattn-wk", "decode xattn-wv")
+        m = m_enc if memory_side else WH_BATCH
+        if x.shape[0] != m or x.dtype != torch.int32 or w.dtype != torch.int8:
+            raise AssertionError(f"{name}: operand {tuple(x.shape)} "
+                                 f"{x.dtype} x {tuple(w.shape)} {w.dtype}")
+    del memory, caches, enc, dec
+    max_err = _b1_equal_plain(ops, spec, "whisper")
+
+    # The kernel path against the scan twin, stage by stage.
+    resolutions, launches = [], []
+
+    def counted(i, fn):
+        cim_mac.LAUNCHES.clear()
+        with dispatch.record_resolutions() as res:
+            out = fn()
+        resolutions.append(collections.Counter(
+            (r.key.variant, r.key.backend, r.source) for r in res))
+        launches.append(cim_mac.LAUNCHES["gpq_matmul"])
+        return out
+
+    t0 = time.perf_counter()
+    kern = wh_steps(planned, cfg_k, frames, prompts, WH_SCAN_STEPS, counted)
+    torch.cuda.synchronize()
+    t_kern = time.perf_counter() - t0
+    for i, (res, nl) in enumerate(zip(resolutions, launches)):
+        want = per_enc if i == 0 else per_step
+        if res != {("p8t", "cuda", "explicit"): want} or nl != want:
+            raise AssertionError(f"stage {i}: resolutions {dict(res)}, {nl} "
+                                 f"B1 launches; want {want}")
+    t0 = time.perf_counter()
+    with dispatch.record_resolutions() as res:
+        scan = wh_steps(planned, scan_twin(cfg_k), frames, prompts,
+                        WH_SCAN_STEPS)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    kinds = {(r.key.variant, r.key.backend, r.source) for r in res}
+    if kinds != {("p8t", "scan", "explicit")}:
+        raise AssertionError(f"the scan twin ran {kinds}")
+    for i, (a, b) in enumerate(zip(kern, scan, strict=True)):
+        if not (torch.equal(a, b) and torch.isfinite(a).all()):
+            d = (a.float() - b.float()).abs().max().item()
+            raise AssertionError(f"step {i}: cim-kernel logits != scan "
+                                 f"twin's ({d})")
+    kern_toks = _tokens(kern)
+    log(f"[whisper] encode + prefill + {WH_SCAN_STEPS} decode steps: "
+        f"cim-kernel logits == scan twin's (torch.equal) at every step; "
+        f"{per_enc} explicit (p8t, cuda) resolutions and B1 launches in the "
+        f"encoder, {per_step} per decode step (prefill too); {t_kern:.1f} s "
+        f"through B1, {t_scan:.1f} s through the scan")
+    del kern, scan
+
+    # The card against the port's CPU path at depth 1 + 1, full width,
+    # float32, one of the prompts (the CPU's plain B1 at M = 1500).
+    c1 = dict(n_layers=1, n_encoder_layers=1, activation_dtype="float32")
+    p1 = transformer.init(0, lm_cfg("fp", arch=WH_ARCH, **c1), device="cuda")
+    p1_cpu = convert.to_torch(p1, device="cpu")
+    for mode in ("fp", "cim-kernel"):
+        c = lm_cfg(mode, arch=WH_ARCH, **c1)
+        dev_p, host_p = p1, p1_cpu
+        if mode != "fp":
+            dev_p = engine.plan_params(p1, policy=c.cim)
+            host_p = engine.plan_params(p1_cpu, policy=c.cim)
+        t0 = time.perf_counter()
+        dev = _tokens(wh_steps(dev_p, c, frames[:1], prompts[:1],
+                               WH_CPU_STEPS))
+        host = _tokens(wh_steps(host_p, c, frames[:1].cpu(),
+                                prompts[:1].cpu(), WH_CPU_STEPS))
+        if not np.array_equal(dev, host):
+            raise AssertionError(f"{mode}: card tokens {dev.tolist()} != "
+                                 f"CPU tokens {host.tolist()} at depth 1")
+        log(f"[whisper] card == CPU path at depth 1 + 1, full width, "
+            f"float32, batch 1, {mode}: the same {WH_CPU_STEPS + 1} greedy "
+            f"tokens ({time.perf_counter() - t0:.1f} s)")
+    del p1, p1_cpu, dev_p, host_p
+
+    # Greedy generation per mode, on the host clock, stage by stage.
+    stage_launches = {}
+    for mode in ("fp", "cim-exact", "cim-kernel"):
+        cfg = lm_cfg(mode, arch=WH_ARCH)
+        # fp serves the digital int8 weight-only plan.
+        p = planned if mode != "fp" else engine.plan_params(params,
+                                                            policy=cfg.cim)
+        wh_steps(p, cfg, frames, prompts, 1)  # warm
+        stage_ms, stage_n = [], []
+
+        def timed(i, fn):
+            n0 = cim_mac.LAUNCHES["gpq_matmul"]
+            out, ms = host_ms(fn)
+            stage_ms.append(ms)
+            stage_n.append(cim_mac.LAUNCHES["gpq_matmul"] - n0)
+            return out
+
+        cim_mac.LAUNCHES.clear()
+        out, total_ms = host_ms(lambda: wh_steps(p, cfg, frames, prompts,
+                                                 WH_GEN - 1, timed))
+        toks = _tokens(out)
+        if toks.shape != (WH_BATCH, WH_GEN) or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{mode}: bad tokens {toks.shape}")
+        want = [per_enc] + [per_step] * WH_GEN if mode == "cim-kernel" \
+            else [0] * (WH_GEN + 1)
+        if stage_n != want:
+            raise AssertionError(f"{mode}: B1 launches per stage {stage_n}, "
+                                 f"want {want}")
+        if mode == "cim-kernel":
+            stage_launches = {"encoder": stage_n[0],
+                              "decoder": sum(stage_n[1:])}
+            if not np.array_equal(toks[:, :WH_SCAN_STEPS + 1], kern_toks):
+                raise AssertionError("generation's tokens != the checked "
+                                     "run's")
+        dec_ms = sum(stage_ms[2:]) / (WH_GEN - 1)
+        log(f"[whisper] generate {mode:10s} batch {WH_BATCH}, prompt "
+            f"{WH_PROMPT}, {WH_GEN} new tokens: {total_ms:.2f} ms, "
+            f"{WH_BATCH * WH_GEN / total_ms * 1e3:.2f} tokens/s; encode "
+            f"{stage_ms[0]:.3f} ms, prefill {stage_ms[1]:.3f} ms, decode "
+            f"{dec_ms:.3f} ms per step (host clock)")
+        del p, out
+
+    timings = b1_timings(ops, spec, cfg_k.n_layers, "whisper-timing")
+    caches = transformer.init_caches(cfg_k, WH_BATCH, WH_PROMPT + 3,
+                                     device="cuda")
+    with torch.no_grad():
+        memory = transformer.encode(planned, frames, cfg_k, cfg_k.cim)
+        logits, _ = transformer.prefill(planned, prompts, caches, cfg_k,
+                                        memory=memory)
+        tok = logits.argmax(-1)
+        transformer.decode_step(planned, tok, WH_PROMPT, caches, cfg_k,
+                                memory=memory)  # warm
+    profile_window(
+        "whisper-profile", f"one cim-kernel decode step at batch {WH_BATCH}",
+        lambda: transformer.decode_step(planned, tok, WH_PROMPT + 1, caches,
+                                        cfg_k, memory=memory))
+    del planned, caches, memory
+    b1 = KERNELS[0]
+    entries = []
+    for kind, what in (("decode", f"{WH_ARCH} decode step ({cfg_k.n_layers} "
+                                  f"layers x {len(WH_DECODE_OPS)} "
+                                  f"projections; launches over the prefill "
+                                  f"and {WH_GEN - 1} decode steps)"),
+                       ("encoder", f"{WH_ARCH} encoder ("
+                                   f"{cfg_k.n_encoder_layers} layers x "
+                                   f"{len(WH_ENCODER_OPS)} projections, M = "
+                                   f"{m_enc})")):
+        ms, plain_ms, bound, bound_by, device_ms = timings[kind]
+        entries.append({
+            "name": b1.name, "path": what, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{b1.name}.cu",
+            "replaces": b1.replaces,
+            "launches": stage_launches["decoder" if kind == "decode"
+                                       else "encoder"],
+            "max_abs_err": max_err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None,
+        })
+    log(f"[whisper] phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries, (params, frames, prompts)
+
+
+def phase_vlm():
+    """internvl2-2b's frontend stub and text serving through B1 (see the
+    module docstring). Returns its kernels-line entry."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.kernels import cim_mac, dispatch
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg_k = lm_cfg("cim-kernel", arch=VLM_ARCH, n_layers=VLM_LAYERS)
+    spec = cfg_k.cim.cim
+    per_fwd = VLM_LAYERS * len(LM_PROJECTIONS)
+    params = transformer.init(0, cfg_k, device="cuda")
+    planned = engine.plan_params(params, policy=cfg_k.cim)
+    del params
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fe = 0.02 * torch.randn((VLM_BATCH, cfg_k.frontend_seq, cfg_k.d_model),
+                            generator=gen, device="cuda")
+    toks = torch.from_numpy(MarkovLM(cfg_k.vocab_size, seed=0).sample(
+        VLM_BATCH, VLM_TEXT - 1, seed=0)).long().cuda()
+    batch = {"tokens": toks, "frontend_embeds": fe}
+    log(f"[vlm] {cfg_k.name}: {VLM_LAYERS} of 24 layers, d_model "
+        f"{cfg_k.d_model}, {cfg_k.n_heads}/{cfg_k.n_kv_heads} heads, d_ff "
+        f"{cfg_k.d_ff}, vocab {cfg_k.vocab_size}; {cfg_k.frontend_seq} patch "
+        f"embeddings + {VLM_TEXT} text tokens, batch {VLM_BATCH}")
+
+    cim_mac.LAUNCHES.clear()
+    with torch.no_grad(), dispatch.record_resolutions() as res:
+        kern, _ = transformer.forward_train(planned, batch, cfg_k)
+    torch.cuda.synchronize()
+    fwd_launches = cim_mac.LAUNCHES["gpq_matmul"]
+    kinds = collections.Counter((r.key.variant, r.key.backend, r.source)
+                                for r in res)
+    if kinds != {("p8t", "cuda", "explicit"): per_fwd} or \
+            fwd_launches != per_fwd:
+        raise AssertionError(f"forward: {dict(kinds)}, {fwd_launches} B1 "
+                             f"launches; want {per_fwd}")
+    want_shape = (VLM_BATCH, cfg_k.frontend_seq + VLM_TEXT,
+                  cfg_k.padded_vocab)
+    if tuple(kern.shape) != want_shape or not torch.isfinite(
+            kern[..., :cfg_k.vocab_size]).all():
+        raise AssertionError(f"forward logits {tuple(kern.shape)}, want "
+                             f"{want_shape}, finite")
+    t0 = time.perf_counter()
+    with torch.no_grad(), dispatch.record_resolutions() as res:
+        scan, _ = transformer.forward_train(planned, batch, scan_twin(cfg_k))
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    if {(r.key.backend, r.source) for r in res} != {("scan", "explicit")}:
+        raise AssertionError("the scan twin left the scan")
+    if not torch.equal(kern, scan):
+        d = (kern.float() - scan.float()).abs().max().item()
+        raise AssertionError(f"forward: cim-kernel logits != scan twin's "
+                             f"({d})")
+    log(f"[vlm] forward_train with {cfg_k.frontend_seq} patch embeddings "
+        f"prepended: logits {want_shape}, cim-kernel == scan twin's "
+        f"(torch.equal), {per_fwd} B1 launches ({t_scan:.1f} s through the "
+        f"scan)")
+    del kern, scan
+
+    eng = ServeEngine(planned, cfg_k, max_len=VLM_TEXT + VLM_GEN + 1,
+                      batch=VLM_BATCH)
+    eng.generate(toks, 2)  # warm
+    cim_mac.LAUNCHES.clear()
+    out, total_ms = host_ms(lambda: eng.generate(toks, VLM_GEN))
+    gen_launches = cim_mac.LAUNCHES["gpq_matmul"]
+    if out.shape != (VLM_BATCH, VLM_GEN) or out.max() >= cfg_k.vocab_size \
+            or gen_launches != per_fwd * VLM_GEN:
+        raise AssertionError(f"generate: tokens {out.shape}, "
+                             f"{gen_launches} B1 launches")
+    log(f"[vlm] ServeEngine.generate on text, cim-kernel, batch "
+        f"{VLM_BATCH}, prompt {VLM_TEXT}, {VLM_GEN} new tokens: "
+        f"{total_ms:.2f} ms, {VLM_BATCH * VLM_GEN / total_ms * 1e3:.2f} "
+        f"tokens/s, {gen_launches} B1 launches (host clock)")
+    caches = transformer.init_caches(cfg_k, VLM_BATCH, VLM_TEXT + 2,
+                                     device="cuda")
+    with torch.no_grad():
+        logits, _ = transformer.prefill(planned, toks, caches, cfg_k)
+        with capture_kernel_operands() as dec:
+            transformer.decode_step(planned, logits.argmax(-1), VLM_TEXT,
+                                    caches, cfg_k)
+    ops = [(f"decode {p}", x, w)
+           for p, (_, x, w, _) in zip(LM_PROJECTIONS, dec)]
+    max_err = _b1_equal_plain(ops, spec, "vlm")
+    ms, plain_ms, bound, bound_by, device_ms = b1_timings(
+        ops, spec, VLM_LAYERS, "vlm-timing")["decode"]
+    log(f"[vlm] phase: {time.perf_counter() - t_phase:.1f} s")
+    b1 = KERNELS[0]
+    return {
+        "name": b1.name,
+        "path": f"{VLM_ARCH} text decode step ({VLM_LAYERS} of 24 layers x "
+                f"{len(LM_PROJECTIONS)} projections)",
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{b1.name}.cu",
+        "replaces": b1.replaces, "launches": gen_launches,
+        "max_abs_err": max_err, "ms": ms, "device_ms": device_ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
+def phase_autotune(whisper):
+    """kernels.autotune on the card, then whisper decode under the tuned
+    cache (see the module docstring)."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.core.params import PAPER_OP_16ROWS
+    from repro_torch.kernels import autotune, dispatch
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    timer = autotune.best_of(3, device)
+    sweeps = []  # per sweep, in autotune's order: {candidate: us}
+    want = {}
+
+    def measure(cand, run):
+        out = run()
+        if cand[0] == "scan":  # every sweep's first candidate
+            sweeps.append({})
+            want["out"] = out
+        elif not torch.equal(out, want["out"]):
+            d = (out - want["out"]).abs().max().item()
+            raise AssertionError(f"sweep {len(sweeps)}: {cand} != the scan "
+                                 f"twin ({d})")
+        secs = timer(cand, run)
+        sweeps[-1][cand] = secs * 1e6
+        return secs
+
+    arch = autotune.device_arch(device)
+    path = ROOT / "build" / "chip_smoke" / "autotune" / f"{arch}.json"
+    cache = autotune.autotune(AT_SHAPES, PAPER_OP_16ROWS,
+                              variants=VARIANTS_ALL, path=path, save=True,
+                              activate=False, merge=False, measure=measure,
+                              device=device)
+    t_sweep = time.perf_counter() - t_phase
+    grid = [(v, s) for v in VARIANTS_ALL for s in AT_SHAPES]
+    n_cands = len(autotune.default_candidates("p8t", device=device))
+    if len(sweeps) != len(grid) or any(len(t) != n_cands for t in sweeps):
+        raise AssertionError(f"{len(sweeps)} sweeps of "
+                             f"{[len(t) for t in sweeps]} candidates; want "
+                             f"{len(grid)} of {n_cands}: a candidate failed")
+    if autotune.TuningCache.load(path=path).to_json() != cache.to_json():
+        raise AssertionError("the saved tuning cache does not round-trip")
+    for (variant, shape), times in zip(grid, sweeps):
+        win = cache.lookup(variant, dispatch.shape_cell(*shape))
+        log(f"[autotune] {variant:10s} {str(shape):18s} -> {win.backend}"
+            f"{'' if win.block is None else ' ' + str(win.block)} "
+            f"{win.us:.1f} us; " + ", ".join(
+                f"{b}{'' if blk is None else blk[1]} {us:.1f}"
+                for (b, blk), us in times.items()))
+    log(f"[autotune] {len(grid)} sweeps x {n_cands} candidates (scan, ref, "
+        f"slots, cuda at bn 16/32/64), each == the scan twin (torch.equal); "
+        f"best of 3 under CUDA events, us; {t_sweep:.1f} s; saved to "
+        f"{path.relative_to(ROOT)}; winners by backend "
+        f"{dict(collections.Counter(w.backend for w in cache.entries.values()))}")
+
+    # whisper decode in cim mode (implicit dispatch): heuristics, then the
+    # tuned cache; every backend is bit-exact, so the logits are equal.
+    params, frames, prompts = whisper
+    cfg = lm_cfg("cim", arch=WH_ARCH)
+    planned = engine.plan_params(params, policy=cfg.cim)
+    autotune.clear_active()
+    with dispatch.record_resolutions() as rh:
+        heur = wh_steps(planned, cfg, frames, prompts, 2)
+    autotune.set_active(cache)
+    try:
+        with dispatch.record_resolutions() as rt:
+            tuned = wh_steps(planned, cfg, frames, prompts, 2)
+    finally:
+        autotune.clear_active()
+    for i, (a, b) in enumerate(zip(heur, tuned, strict=True)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"step {i}: tuned logits != heuristic's")
+    src = collections.Counter((r.key.backend, r.source) for r in rt)
+    if not any(s == "tuned" for _, s in src):
+        raise AssertionError(f"no tuned resolution: {dict(src)}")
+    log(f"[autotune] whisper encode + prefill + 2 decode steps, cim mode: "
+        f"tuned logits == heuristic logits (torch.equal); resolutions, "
+        f"heuristic run {dict(collections.Counter((r.key.backend, r.source) for r in rh))}; "
+        f"tuned run {dict(src)}")
+
+    # A pin fixes only bn: a 32-row call in a pinned cell runs the kernel at
+    # cuda_block(32, bn). An operand fault under a pin raises.
+    spec32 = PAPER_OP_16ROWS.replace(rows_per_group=32, rows_active=32)
+    shape = AT_SHAPES[0]
+    win = cache.lookup("p8t", dispatch.shape_cell(*shape))
+    if win.backend != "cuda":
+        raise AssertionError(f"p8t {shape}: the kernel lost to {win}")
+    x, w, _, _ = autotune.sweep_operands(spec32, *shape, device=device)
+    want_blk = dispatch.cuda_block(32, win.block[1])
+    autotune.set_active(cache)
+    try:
+        with dispatch.record_resolutions() as r32:
+            y32 = dispatch.dispatch(x, w, spec32)
+        got = [(r.source, r.key.backend, r.block) for r in r32]
+        if got != [("tuned", "cuda", want_blk)]:
+            raise AssertionError(f"32 rows under the pin {win.block}: {got}")
+        if not torch.equal(y32, dispatch.dispatch(x, w, spec32,
+                                                  backend="scan")):
+            raise AssertionError("32 rows under the pin != the scan twin")
+        try:
+            dispatch.dispatch(x, w.cpu(), spec32)
+        except ValueError as e:
+            fault = str(e)
+        else:
+            raise AssertionError("an operand fault under a tuned pin ran")
+    finally:
+        autotune.clear_active()
+    log(f"[autotune] p8t {shape} at 32 rows under the pin {win.block}: "
+        f"tuned, block {want_blk}, == the scan twin (torch.equal); w on the "
+        f"host under the pin raises ValueError: {fault}")
+    log(f"[autotune] phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
     card = phase_device()
     phase_build()
+
+    from repro_torch.kernels import autotune
+
+    autotune.clear_active()  # phases 1-10 run on dispatch's heuristics
 
     from repro_torch.configs import resnet as rcfg
 
@@ -1479,6 +2051,10 @@ def main() -> int:
     timings = phase_timings(ops, spec)
     lm_launches, lm_err, lm_t = phase_lm()
     cal_entries = phase_calibration(params, bn, batches)
+    del params, bn, batches, ops
+    wh_entries, whisper = phase_whisper()
+    vlm_entry = phase_vlm()
+    phase_autotune(whisper)
 
     report = {"kernels": [{
         "name": kern.name,
@@ -1515,7 +2091,7 @@ def main() -> int:
         "prefill_plain_ms": lm_t["prefill"][1],
         "prefill_bound_ms": lm_t["prefill"][2],
     })
-    report["kernels"] += cal_entries
+    report["kernels"] += cal_entries + wh_entries + [vlm_entry]
     log(json.dumps(report))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -276,8 +276,6 @@ FULL_ATTENTION_ARCHS = frozenset(
 # Archs of ARCH_IDS whose layers the port does not run yet, with the
 # ROADMAP.md item that brings them.
 _NOT_PORTED = {
-    "whisper_tiny": "A8 (rest of slice 3: the encoder and cross-attention)",
-    "internvl2_2b": "A8 (rest of slice 3: the VLM frontend stub)",
     "jamba_1_5_large": "A11 (slice 6: mamba layers and MoE)",
     "qwen2_moe_a2_7b": "A11 (slice 6: MoE)",
     "granite_moe_1b": "A11 (slice 6: MoE)",

@@ -28,6 +28,10 @@ function in plain PyTorch ops following the reference's float
 arithmetic, which is also what the kernel is held to on the card. There
 is no fallback from one to the other.
 
+Each wrapper takes an optional ``bn``, the kernel's column tile (16, 32
+or 64; None or 0 picks it by N, as before), the block an autotuned pin
+fixes. Any other value raises, on either device.
+
 ``LAUNCHES`` counts kernel launches by kernel name; it moves only where
 a kernel is launched.
 """
@@ -246,6 +250,24 @@ def _check_plane_spec(spec: MacroSpec) -> None:
         )
 
 
+# The column tiles the tensor-core kernel is instantiated for
+# (csrc/plane_mma.cuh, launch_plane_ks), and its rows per block (four m16
+# warps, kPlaneBM).
+KERNEL_BNS = (16, 32, 64)
+PLANE_BM = 64
+
+
+def check_bn(bn: int | None) -> int:
+    """``bn`` as the launchers take it: 0 for None or 0 (the choice by N),
+    else one of KERNEL_BNS; anything else raises ValueError."""
+    if not bn:
+        return 0
+    if bn not in KERNEL_BNS:
+        raise ValueError(f"bn={bn!r}: the GPQ kernels' column tile is one "
+                         f"of {KERNEL_BNS} (or None/0 to pick it by N)")
+    return int(bn)
+
+
 _BOUND: set[str] = set()
 
 
@@ -254,7 +276,8 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, *args,
     """Launch kernel ``name`` on [M, K] x [K, N] without synchronising.
 
     ``args`` are the kernel's scalar arguments after (x, w, out, M, K,
-    N): Python ints pass as C ints, floats as C floats. Counts the launch.
+    N), its column tile ``bn`` last: Python ints pass as C ints, floats as
+    C floats. Counts the launch.
     """
     m, k = x.shape
     n = w.shape[1]
@@ -295,6 +318,8 @@ def gpq_matmul(
     x_codes: torch.Tensor,
     w_codes: torch.Tensor,
     cfg: CIMConfig | MacroSpec,
+    *,
+    bn: int | None = None,
 ) -> torch.Tensor:
     """P-8T GPQ matmul (B1) [M, K] x [K, N] -> [M, N] float32.
 
@@ -308,6 +333,7 @@ def gpq_matmul(
     guard.
     """
     spec = MacroSpec.from_config(cfg)
+    bn = check_bn(bn)
     if _on_cpu(x_codes, w_codes):
         return gpq_matmul_plain(x_codes, w_codes, spec)
     _check_plane_spec(spec)
@@ -316,7 +342,7 @@ def gpq_matmul(
     return _launch(
         "gpq_matmul", x_codes, w_codes, spec.rows_active, spec.weight_bits,
         spec.adc_bits, spec.threshold, spec.adc_codes,
-        int(spec.adc_mode == "nearest"), float(spec.adc_step),
+        int(spec.adc_mode == "nearest"), float(spec.adc_step), bn,
         stream=_stream(x_codes),
     )
 
@@ -325,6 +351,8 @@ def adder_tree_gpq_matmul(
     x_codes: torch.Tensor,
     w_codes: torch.Tensor,
     cfg: CIMConfig | MacroSpec,
+    *,
+    bn: int | None = None,
 ) -> torch.Tensor:
     """Adder-tree GPQ matmul (B2) [M, K] x [K, N] -> [M, N] float32.
 
@@ -335,6 +363,7 @@ def adder_tree_gpq_matmul(
     reference's merged-code depth guard.
     """
     spec = MacroSpec.from_config(cfg)
+    bn = check_bn(bn)
     if _on_cpu(x_codes, w_codes):
         return adder_tree_gpq_matmul_plain(x_codes, w_codes, spec)
     _check_plane_spec(spec)
@@ -344,7 +373,7 @@ def adder_tree_gpq_matmul(
     return _launch(
         "adder_tree_gpq_matmul", x_codes, w_codes, spec.rows_active,
         spec.weight_bits, mq.code_min, mq.code_max,
-        int(spec.adc_mode == "nearest"), float(mq.step),
+        int(spec.adc_mode == "nearest"), float(mq.step), bn,
         stream=_stream(x_codes),
     )
 
@@ -353,6 +382,8 @@ def cell_adc_gpq_matmul(
     x_codes: torch.Tensor,
     w_codes: torch.Tensor,
     cfg: CIMConfig | MacroSpec,
+    *,
+    bn: int | None = None,
 ) -> torch.Tensor:
     """Cell-embedded-ADC GPQ matmul (B3) [M, K] x [K, N] -> [M, N] f32.
 
@@ -363,6 +394,7 @@ def cell_adc_gpq_matmul(
     reference's depth guard (B1's).
     """
     spec = MacroSpec.from_config(cfg)
+    bn = check_bn(bn)
     if _on_cpu(x_codes, w_codes):
         return cell_adc_gpq_matmul_plain(x_codes, w_codes, spec)
     _check_plane_spec(spec)
@@ -377,6 +409,6 @@ def cell_adc_gpq_matmul(
     return _launch(
         "cell_adc_gpq_matmul", x_codes, w_codes, spec.rows_active,
         spec.weight_bits, spec.adc_bits, spec.threshold,
-        int(spec.adc_mode == "nearest"), float(spec.adc_step),
+        int(spec.adc_mode == "nearest"), float(spec.adc_step), bn,
         stream=_stream(x_codes),
     )

@@ -106,14 +106,15 @@ bool recip_is_exact(float step, int max_abs) {
 
 extern "C" {
 
-// Launches on `stream` without synchronising; returns cudaGetLastError(),
+// Launches on `stream` at column tile `bn` (16, 32 or 64; 0 picks it by
+// N) without synchronising; returns cudaGetLastError(),
 // or cudaErrorNotSupported where the reciprocal quotient is not float32's
 // correctly rounded one for some merged value.
 int adder_tree_gpq_matmul_launch(const void* x, const void* w, void* out,
                                  int M, int K, int N, int rows,
                                  int weight_bits, int code_min,
                                  int code_max, int nearest, float step,
-                                 void* stream) {
+                                 int bn, void* stream) {
   if (gpq::bad_shape(M, K, N, rows, weight_bits) || rows > 32 ||
       !(step > 0.0f) || code_min > code_max || code_min < -kCodeLimit ||
       code_max > kCodeLimit)
@@ -125,7 +126,7 @@ int adder_tree_gpq_matmul_launch(const void* x, const void* w, void* out,
                               static_cast<float>(code_min),
                               static_cast<float>(code_max)};
   return static_cast<int>(gpq::launch_plane_gpq<gpq::SignedPlane>(
-      x, w, out, M, K, N, rows, weight_bits, conv, step,
+      x, w, out, M, K, N, rows, weight_bits, conv, step, bn,
       static_cast<cudaStream_t>(stream)));
 }
 

@@ -94,7 +94,7 @@ struct SarSearch {
 template <int kBits>
 cudaError_t launch_sar(const void* x, const void* w, void* out, int M,
                        int K, int N, int rows, int weight_bits, int adc_bits,
-                       int threshold, int nearest, float adc_step,
+                       int threshold, int nearest, float adc_step, int bn,
                        cudaStream_t stream) {
   SarSearch<kBits> adc{adc_bits, 0, 0, 0, {}};
   float scale = adc_step;
@@ -114,7 +114,7 @@ cudaError_t launch_sar(const void* x, const void* w, void* out, int M,
     adc.neg_level[0] = 0u - level;
   }
   return gpq::launch_plane_gpq<gpq::BitPlanes>(x, w, out, M, K, N, rows,
-                                               weight_bits, adc, scale,
+                                               weight_bits, adc, scale, bn,
                                                stream);
 }
 
@@ -122,17 +122,19 @@ cudaError_t launch_sar(const void* x, const void* w, void* out, int M,
 
 extern "C" {
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
+// Launches on `stream` at column tile `bn` (16, 32 or 64; 0 picks it by
+// N) without synchronising; returns cudaGetLastError().
 int cell_adc_gpq_matmul_launch(const void* x, const void* w, void* out,
                                int M, int K, int N, int rows,
                                int weight_bits, int adc_bits, int threshold,
-                               int nearest, float adc_step, void* stream) {
+                               int nearest, float adc_step, int bn,
+                               void* stream) {
   if (gpq::bad_shape(M, K, N, rows, weight_bits) || threshold <= 0 ||
       adc_bits < 1 || adc_bits > 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t (*launch)(const void*, const void*, void*, int, int, int, int,
-                        int, int, int, int, float, cudaStream_t) =
+                        int, int, int, int, float, int, cudaStream_t) =
       launch_sar<0>;
   // A whole step, and a group's shift-add sum in a signed 16-bit half.
   if (threshold % (1 << adc_bits) == 0 && 255 * threshold < (1 << 15)) {
@@ -141,7 +143,8 @@ int cell_adc_gpq_matmul_launch(const void* x, const void* w, void* out,
     if (adc_bits == 5) launch = launch_sar<5>;
   }
   return static_cast<int>(launch(x, w, out, M, K, N, rows, weight_bits,
-                                 adc_bits, threshold, nearest, adc_step, st));
+                                 adc_bits, threshold, nearest, adc_step, bn,
+                                 st));
 }
 
 }  // extern "C"

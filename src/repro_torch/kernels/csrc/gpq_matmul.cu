@@ -135,11 +135,12 @@ bool flash_shift2(int adc_bits, int threshold, int code_max, int nearest,
 
 extern "C" {
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
+// Launches on `stream` at column tile `bn` (16, 32 or 64; 0 picks it by
+// N) without synchronising; returns cudaGetLastError().
 int gpq_matmul_launch(const void* x, const void* w, void* out, int M, int K,
                       int N, int rows, int weight_bits, int adc_bits,
                       int threshold, int adc_codes, int nearest,
-                      float adc_step, void* stream) {
+                      float adc_step, int bn, void* stream) {
   if (gpq::bad_shape(M, K, N, rows, weight_bits) || threshold <= 0 ||
       adc_bits < 1 || adc_bits > 16)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -148,10 +149,10 @@ int gpq_matmul_launch(const void* x, const void* w, void* out, int M, int K,
   if (flash_shift2(adc_bits, threshold, adc_codes - 1, nearest, &shift2))
     return static_cast<int>(gpq::launch_plane_gpq<gpq::BitPlanes>(
         x, w, out, M, K, N, rows, weight_bits, shift2,
-        adc_step / static_cast<float>(threshold >> adc_bits), st));
+        adc_step / static_cast<float>(threshold >> adc_bits), bn, st));
   const FlashTable table{adc_bits, threshold, adc_codes - 1, nearest};
   return static_cast<int>(gpq::launch_plane_gpq<gpq::BitPlanes>(
-      x, w, out, M, K, N, rows, weight_bits, table, adc_step, st));
+      x, w, out, M, K, N, rows, weight_bits, table, adc_step, bn, st));
 }
 
 }  // extern "C"

@@ -52,7 +52,8 @@
 //     from device memory once per column tile (once for N <= 64).
 //
 // Tiles: 4 warps per block, one 16-row m tile each (BM = 64 rows), BN in
-// {16, 32, 64} columns following N. A K tail is a short group whose
+// {16, 32, 64} columns: the caller's choice (a tuned pin), or by default
+// the smallest that covers N, up to 64. A K tail is a short group whose
 // missing rows read zero (the reference's zero padding); ragged M and N
 // edges are masked.
 
@@ -376,31 +377,35 @@ cudaError_t launch_plane_tile(const void* x, const void* w, void* out,
 template <int kS, class Planes, class Adc>
 cudaError_t launch_plane_ks(const void* x, const void* w, void* out, int M,
                             int K, int N, int rows, int weight_bits,
-                            const Adc& adc, float scale,
+                            const Adc& adc, float scale, int bn,
                             cudaStream_t stream) {
-  if (N <= 16)
+  if (bn == 0) bn = N <= 16 ? 16 : N <= 32 ? 32 : 64;
+  if (bn == 16)
     return launch_plane_tile<16, kS, Planes>(x, w, out, M, K, N, rows,
                                              weight_bits, adc, scale, stream);
-  if (N <= 32)
+  if (bn == 32)
     return launch_plane_tile<32, kS, Planes>(x, w, out, M, K, N, rows,
                                              weight_bits, adc, scale, stream);
-  return launch_plane_tile<64, kS, Planes>(x, w, out, M, K, N, rows,
-                                           weight_bits, adc, scale, stream);
+  if (bn == 64)
+    return launch_plane_tile<64, kS, Planes>(x, w, out, M, K, N, rows,
+                                             weight_bits, adc, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
-// Launch plane_mma_kernel at the BN that covers N (up to 64; wider layers
-// take several column tiles) and the k16 steps a group takes (rows <= 32).
+// Launch plane_mma_kernel at column tile `bn` (16, 32 or 64; 0: the BN
+// that covers N, up to 64; wider layers take several column tiles) and the
+// k16 steps a group takes (rows <= 32).
 template <class Planes, class Adc>
 cudaError_t launch_plane_gpq(const void* x, const void* w, void* out, int M,
                              int K, int N, int rows, int weight_bits,
-                             const Adc& adc, float scale,
+                             const Adc& adc, float scale, int bn,
                              cudaStream_t stream) {
   if (rows <= 16)
     return launch_plane_ks<1, Planes>(x, w, out, M, K, N, rows, weight_bits,
-                                      adc, scale, stream);
+                                      adc, scale, bn, stream);
   if (rows <= 32)
     return launch_plane_ks<2, Planes>(x, w, out, M, K, N, rows, weight_bits,
-                                      adc, scale, stream);
+                                      adc, scale, bn, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -19,7 +19,10 @@ Backends registered for each macro variant (``core.variants``):
   "cuda"    the variant's hand-written Hopper kernel (kernels.cim_mac:
             gpq_matmul B1, adder_tree_gpq_matmul B2, cell_adc_gpq_matmul
             B3). Noiseless. Consumes a plan's packed planes directly
-            (flatten-sliced to the [K, N] byte matrix).
+            (flatten-sliced to the [K, N] byte matrix). Takes a ``block``
+            (bm, bn, bk) = ``cuda_block(rows, bn)``: 64 rows (four m16
+            warps), the column tile bn, and the k slots a row group walks;
+            only bn is a choice.
 
 The cell-ADC's ideal transfer is the P-8T floor transfer, so its scan,
 ref and slots entries reuse the P-8T formulations; its kernel is the
@@ -29,25 +32,36 @@ Resolution order when no backend is requested explicitly:
 
   1. hardware-noise injection (``spec.noisy`` and a generator) requires
      the scan transfer, recorded as source="noise";
-  2. heuristics: the slots form at small M when the plan carries it;
+  2. the autotune cache (``kernels.autotune``): the pinned winner for
+     (arch, variant, shape cell), with its block, recorded as
+     source="tuned";
+  3. heuristics: the slots form at small M when the plan carries it;
      the variant's kernel when the operands are on a CUDA device and the
      plan has no unpacked planes; otherwise the scan.
 
-There is no autotune cache yet (ROADMAP slice 5), so no "tuned" source.
+A tuned "cuda" pin fixes only the column tile bn: the call runs at
+``cuda_block(spec.rows_active, bn)``, so a cache swept at another
+rows_active still applies. A pin this call cannot take (a backend not
+registered for the variant, a bn the kernels are not built for, a slots
+pin on a call without slots) is checked before anything runs: the
+heuristics pick instead, recorded as "tuned-fallback".
+
 An explicit ``backend=`` request is always honored and any error it
 raises propagates; a noise request to an explicit backend that cannot
 draw noise (ref, slots, cuda) raises rather than run noiseless. An
-implicit pick that raises the kernel's depth guard
+implicit pick, tuned or heuristic, that raises the kernel's depth guard
 (``DepthGuardError``, a ``ValueError``) falls back to the scan and
 is recorded as "guard-fallback", and one whose operating point the
 kernel does not take (``KernelSpecError``: B1, B2 and B3 at act_bits >
-8 or over 32 active rows) as "spec-fallback". Build, launch and operand
-errors always propagate. ``record_resolutions`` lets callers assert exactly
-which implementation ran.
+8 or over 32 active rows) as "spec-fallback". Every other error
+(operand faults, build and launch errors) propagates.
+``record_resolutions`` lets callers assert exactly which implementation
+ran.
 
 An implementation is ``fn(x_codes, w_codes, spec, *, generator=None,
-planes=None) -> [M, N] float32`` in integer-domain macro units (plus ``slots=`` for implementations registered with
-``supports_slots``).
+planes=None) -> [M, N] float32`` in integer-domain macro units (plus
+``slots=`` for implementations registered with ``supports_slots``, and
+``block=`` for kernels, ``is_kernel``).
 """
 
 from __future__ import annotations
@@ -63,13 +77,27 @@ from repro_torch.core import variants as variants_lib
 from repro_torch.core.params import CIMConfig
 from repro_torch.core.pipeline import MacroSpec, as_spec
 from repro_torch.kernels import ref as ref_lib
-from repro_torch.kernels.cim_mac import DepthGuardError, KernelSpecError
+from repro_torch.kernels.cim_mac import (
+    KERNEL_BNS,
+    PLANE_BM,
+    DepthGuardError,
+    KernelSpecError,
+)
 
 # fn(x_codes, w_codes, spec, *, generator, planes) -> [M, N] f32
 KernelFn = Callable[..., torch.Tensor]
 
-# Backend preference order.
+# Backend preference order (autotune's candidate order too).
 KNOWN_BACKENDS = ("scan", "ref", "slots", "cuda")
+
+Block = tuple[int, int, int]
+
+
+def cuda_block(rows: int, bn: int) -> Block:
+    """The "cuda" kernels' block (bm, bn, bk) at ``rows_active`` and
+    column tile ``bn``: bm = 64 (four m16 warps a block), bk = the k slots
+    a row group walks (16 per k16 step, rows <= 16 in one step)."""
+    return (PLANE_BM, bn, 16 * -(-rows // 16))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,9 +131,10 @@ class Resolution:
     """One dispatch decision."""
 
     key: KernelKey
-    # "explicit" | "noise" | "heuristic" | "guard-fallback" |
-    # "spec-fallback"
+    # "explicit" | "noise" | "tuned" | "heuristic" | "guard-fallback" |
+    # "spec-fallback" | "tuned-fallback"
     source: str
+    block: Block | None = None  # a kernel's (bm, bn, bk)
 
 
 _TABLE: dict[KernelKey, KernelImpl] = {}
@@ -227,6 +256,23 @@ def _heuristic_backend(
     return "scan"
 
 
+def _tuned_pick(
+    win, variant: str, cell, dtype: str, rows: int, slots,
+    block: Block | None,
+) -> tuple[str, Block | None] | None:
+    """The (backend, block) a tuned winner pins for this call, or None
+    when the call cannot take the pin. A kernel pin keeps only its bn;
+    an explicit ``block`` wins over it."""
+    impl = lookup(variant, win.backend, cell, dtype)
+    if impl is None or (impl.supports_slots and slots is None):
+        return None
+    if not impl.is_kernel or block is not None or win.block is None:
+        return win.backend, block
+    if len(win.block) != 3 or win.block[1] not in KERNEL_BNS:
+        return None
+    return win.backend, cuda_block(rows, win.block[1])
+
+
 def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
@@ -241,6 +287,7 @@ def dispatch(
     generator: torch.Generator | None = None,
     planes: torch.Tensor | None = None,
     slots: torch.Tensor | None = None,
+    block: Block | None = None,
 ) -> torch.Tensor:
     """Route one integer-domain macro matmul to its implementation.
 
@@ -249,7 +296,8 @@ def dispatch(
         codes (a plan's ``codes``, any integer dtype).
       spec: the operating point.
       variant: macro family name ("p8t", "adder-tree" or "cell-adc").
-      backend: explicit implementation choice; None = heuristic.
+      backend: explicit implementation choice; None = tuned, else
+        heuristic.
       generator: hardware-noise request; routes an implicit pick to the
         scan transfer.
       planes: plan-grouped bit planes, forwarded to implementations that
@@ -257,6 +305,9 @@ def dispatch(
         chosen implementation reads them.
       slots: plan spread-slot operand; dropped when grouped at another
         rows_active.
+      block: a kernel's (bm, bn, bk) (``cuda_block``); defaults to the
+        tuned winner's bn at ``spec.rows_active``, else the kernel's
+        choice by N.
     """
     spec = as_spec(spec)
     m, k = x_codes.shape
@@ -272,10 +323,18 @@ def dispatch(
         if noisy:
             backend, source = "scan", "noise"
         else:
-            backend = _heuristic_backend(
-                variant, planes, slots, m, x_codes.device
-            )
-            source = "heuristic"
+            from repro_torch.kernels import autotune  # autotune imports us
+
+            win = autotune.lookup(variant, cell)
+            pick = None if win is None else _tuned_pick(
+                win, variant, cell, dtype, spec.rows_active, slots, block)
+            if pick is not None:
+                (backend, block), source = pick, "tuned"
+            else:
+                backend = _heuristic_backend(
+                    variant, planes, slots, m, x_codes.device
+                )
+                source = "heuristic" if win is None else "tuned-fallback"
 
     impl = lookup(variant, backend, cell, dtype)
     if impl is None:
@@ -290,7 +349,8 @@ def dispatch(
             "cannot take the hardware-noise request (a noisy spec with a "
             "generator); leave the backend implicit to run the scan")
     _notify(Resolution(key=KernelKey(variant, backend, cell, dtype),
-                       source=source))
+                       source=source,
+                       block=block if impl.is_kernel else None))
 
     def planes_for(chosen: KernelImpl):
         if not chosen.supports_planes or planes is None:
@@ -310,6 +370,8 @@ def dispatch(
         )
         if chosen.supports_slots:
             kwargs["slots"] = slots
+        if chosen.is_kernel:
+            kwargs["block"] = block
         return chosen.fn(x_codes, w_codes, spec, **kwargs)
 
     if source == "explicit" or backend == "scan":
@@ -317,10 +379,9 @@ def dispatch(
     try:
         return run(impl)
     except (DepthGuardError, KernelSpecError) as e:
-        # The implicitly chosen kernel is infeasible at this depth or
-        # operating point: fall back to the always-feasible scan and
-        # record it. Explicit requests raise above; every other error
-        # propagates.
+        # The implicit pick is infeasible at this depth or operating point:
+        # fall back to the always-feasible scan and record it. Explicit
+        # requests raise above; every other error propagates.
         scan = lookup(variant, "scan", cell, dtype)
         if scan is None:
             raise
@@ -362,8 +423,17 @@ def _slots_impl(slots_fn: KernelFn) -> KernelFn:
 
 
 def _cuda_impl(kernel_name: str) -> KernelFn:
-    def run(x_codes, w_codes, spec, *, generator=None, planes=None):
+    def run(x_codes, w_codes, spec, *, generator=None, planes=None,
+            block=None):
         del generator  # noiseless
+        bn = None
+        if block is not None:
+            bn = block[1]
+            want = cuda_block(spec.rows_active, bn)
+            if tuple(block) != want:
+                raise ValueError(f"block {tuple(block)} is not the cuda "
+                                 f"kernels' {want} at rows_active="
+                                 f"{spec.rows_active}")
         from repro_torch.kernels import ops  # loads the wrappers lazily
 
         if planes is not None and planes.ndim == 3:
@@ -374,7 +444,7 @@ def _cuda_impl(kernel_name: str) -> KernelFn:
             # drop here).
             k = x_codes.shape[1]
             w_codes = planes.reshape(-1, planes.shape[-1])[:k]
-        return getattr(ops, kernel_name)(x_codes, w_codes, spec)
+        return getattr(ops, kernel_name)(x_codes, w_codes, spec, bn=bn)
 
     return run
 

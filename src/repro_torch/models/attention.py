@@ -1,4 +1,4 @@
-"""GQA attention with causal/local masking and KV caches.
+"""GQA attention with causal/local masking, KV caches and cross-attention.
 
 Weight projections route through the CIM execution layer (they are
 weight-stationary); the attention core itself (QK^T, softmax, PV) is
@@ -50,6 +50,8 @@ def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def attn_spec(cfg: ModelConfig) -> dict:
+    """The projections of self-attention, and of cross-attention (the same
+    shapes; cross-attention uses no RoPE)."""
     d = cfg.d_model
     return {
         "wq": common.linear_spec(d, cfg.q_dim, "embed", "heads",
@@ -267,15 +269,33 @@ def decode_step(
     return _out_proj(params, out, cfg, policy), cache
 
 
-def cross_attend(*args, **kwargs):
-    """Encoder-decoder cross attention (whisper)."""
-    raise NotImplementedError(
-        "cross-attention (whisper) is not ported yet: ROADMAP.md A8, the "
-        "rest of slice 3")
+def cross_attend(
+    params: dict,
+    x: torch.Tensor,  # [B, S, D] decoder states
+    memory_kv: tuple[torch.Tensor, torch.Tensor],  # encode_memory_kv's
+    cfg: ModelConfig,
+    *,
+    policy: CIMPolicy | None = None,
+) -> torch.Tensor:
+    """Encoder-decoder cross attention against precomputed memory K/V:
+    no RoPE, no mask."""
+    b, s, _ = x.shape
+    en = policy.apply_to_attn_proj if policy else False
+    q = common.linear_apply(params["wq"], x, policy, cim_enabled=en)
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k, v = memory_kv
+    return _out_proj(params, _gqa_core(q, k, v, None), cfg, policy)
 
 
-def encode_memory_kv(*args, **kwargs):
-    """Cross-attention K/V from encoder output (whisper)."""
-    raise NotImplementedError(
-        "cross-attention (whisper) is not ported yet: ROADMAP.md A8, the "
-        "rest of slice 3")
+def encode_memory_kv(
+    params: dict, memory: torch.Tensor, cfg: ModelConfig,
+    *, policy: CIMPolicy | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V [B, T, KVH, hd] from the encoder output
+    [B, T, D]."""
+    b, t, _ = memory.shape
+    en = policy.apply_to_attn_proj if policy else False
+    k = common.linear_apply(params["wk"], memory, policy, cim_enabled=en)
+    v = common.linear_apply(params["wv"], memory, policy, cim_enabled=en)
+    return (k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim))

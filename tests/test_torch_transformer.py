@@ -136,10 +136,25 @@ def test_registry_records_equal_reference():
         24, 896, 14, 2, 64, 4864, 151936, 152064)
 
 
+# Ported after the dense archs (the encoder-decoder and the VLM frontend
+# stub); tests/test_torch_whisper.py runs them.
+LATER = ("whisper_tiny", "internvl2_2b")
+
+
 @pytest.mark.parametrize("arch", sorted(set(jbase.ARCH_IDS) - set(DENSE)))
 def test_unported_archs_raise_naming_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
-        tbase.get_config(arch)
+    """The archs of slice 6 (A11) raise naming their ROADMAP item; the
+    whisper and internvl2 configs load and equal the reference's."""
+    if arch in LATER:
+        for smoke in (False, True):
+            j = jbase.get_config(arch, smoke=smoke)
+            t = tbase.get_config(arch, smoke=smoke)
+            assert _fields(t) == _fields(j)
+            assert t.padded_vocab == j.padded_vocab
+            assert t.param_count() == j.param_count()
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
+            tbase.get_config(arch)
     with pytest.raises(KeyError):
         tbase.get_config("no_such_arch")
 
@@ -646,10 +661,29 @@ def test_markov_lm_equal():
 
 
 def test_unported_layer_kinds_raise():
+    """mamba layers and MoE MLPs (A11) raise; a frontend stub and
+    cross-attention, ported with whisper, build the reference's tree and
+    compute its cross-attention (float32, 1e-6)."""
     cfg = tbase.get_config("qwen2_0_5b", smoke=True)
     for bad in (dict(layer_pattern=("mamba",)), dict(moe=tbase.MoEConfig(
-            n_experts=4, top_k=2, d_expert=32)), dict(frontend="x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            n_experts=4, top_k=2, d_expert=32))):
+        with pytest.raises(NotImplementedError, match="A11"):
             tt.model_spec(cfg.replace(**bad))
-    with pytest.raises(NotImplementedError, match="A8"):
-        tattn.cross_attend()
+    jc = jbase.get_config("qwen2_0_5b", smoke=True).replace(frontend="x")
+    tspec = tt.model_spec(cfg.replace(frontend="x"))
+    jspec = jt.model_spec(jc)
+    assert {p: tuple(v.shape) for p, v in _leaves(tspec)} == {
+        p: tuple(v.shape) for p, v in _leaves(jspec)}
+    rng = np.random.default_rng(8)
+    jp = jcommon.init_params(jax.random.PRNGKey(2),
+                             jattn.attn_spec(jc, cross=True))
+    tp = convert.to_torch(jax.tree.map(np.asarray, jp), device="cpu")
+    x = rng.standard_normal((2, 3, 128)).astype(np.float32)
+    mem = rng.standard_normal((2, 5, 128)).astype(np.float32)
+    jkv = jattn.encode_memory_kv(jp, jnp.asarray(mem), jc)
+    want = jattn.cross_attend(jp, jnp.asarray(x), jkv, jc)
+    tkv = tattn.encode_memory_kv(tp, torch.from_numpy(mem), cfg)
+    got = tattn.cross_attend(tp, torch.from_numpy(x), tkv, cfg)
+    for a, b in zip(tkv, jkv, strict=True):
+        np.testing.assert_allclose(a.numpy(), _np(b), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6, atol=1e-6)
