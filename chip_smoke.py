@@ -137,7 +137,41 @@ file; it exits non-zero without either. Phases (each one fails the run):
               == the heuristic run's; a 32-row call in a pinned cell runs
               the kernel at the pin's bn with bk 32, == the scan; an
               operand fault under a pin (w left on the host) raises.
- 12. report   one JSON line listing every kernel of the port and its
+ 12. moe      granite-moe-1b-a400m at its published widths and depth (24
+              layers, d_model 1024, GQA 16/8, 32 experts top-8, d_expert
+              512, vocab 49155, tied embeddings) and qwen2-moe-a2.7b at its
+              published widths (d_model 2048, 60 experts top-4, d_expert
+              1408, the 5632-wide shared expert and its sigmoid gate), 4 of
+              its 24 layers; random weights from torch.Generator seed 0,
+              bfloat16 activations, the paper policy; batch 4, 64-token
+              MarkovLM prompts, 16 new tokens. The CIM path runs every
+              expert on every token through B1, each expert of the planned
+              [E, K, N] bank read as a view. Per model: B1 == plain
+              (torch.equal) on the first layer's operands of a prefill and
+              of a decode step, floor and nearest; the B1 launches and (p8t,
+              cuda) resolutions of a prefill and of a decode step counted
+              (granite 24 x (4 + 32 x 3) = 2400, qwen2-moe 4 x (4 + 60 x 3
+              + 3) = 748); at 1 layer the cim-kernel logits == the scan
+              twin's and == the unplanned model's (every expert planned per
+              call); ServeEngine.generate under fp (int8 weight-only),
+              cim-exact and cim-kernel (tokens/s, prefill and decode ms on
+              the host clock, the kernel's tokens == the counted run's);
+              B1's time per decode step (one operand of each shape times
+              its launches) beside its bound; one profiled decode step.
+ 13. recurrent rwkv6-1.6b at its published widths and depth (24 layers,
+              d_model 2048, head size 64, d_ff 7168, vocab 65536): the same
+              checks (192 launches a step, the scan twin at 2 layers); jamba
+              SMOKE's cim-kernel logits == the scan twin's over a prefill and
+              2 decode steps; jamba-1.5-large at its published widths
+              (d_model 8192, d_ff 24576, GQA 64/8, mamba d_state 16, expand
+              2, bfloat16 parameters) cut to one pattern unit (8 of 72
+              layers: 1 attention, 7 mamba, MoE on layers 1, 3, 5, 7) and 4
+              of 16 experts (top-2): B1 == plain on one decode operand of
+              each shape (K up to 24576), 4 + 7 x 2 + 4 x 3 + 4 x 4 x 3 =
+              78 launches a step counted, generate under fp (the plans' kept
+              bfloat16 weights), cim-exact and cim-kernel, B1's time per
+              step, one profiled step.
+ 14. report   one JSON line listing every kernel of the port and its
               launches on each path.
 
 The last line is {"ok": true, "device": {...}}.
@@ -195,6 +229,14 @@ AT_SHAPES = (
     (6000, 384, 384), (6000, 384, 1536), (6000, 1536, 384),  # its encoder
     (16384, 576, 64),  # ResNet stage-3 conv at batch 256
 )
+# Phases 12-13: the MoE, RWKV-6 and Mamba families, served as phase 7.
+FAM_BATCH, FAM_PROMPT, FAM_GEN = 4, 64, 16
+GRANITE_SCAN_LAYERS = 1  # the scan twin takes ~30 ms a call: 100 a layer
+QMOE_LAYERS = 4  # of 24: float32 parameters at 24 layers are ~57 GB
+QMOE_SCAN_LAYERS = 1
+RWKV_SCAN_LAYERS = 2
+JAMBA_LAYERS = 8  # one pattern unit of 72: 1 attn + 7 mamba, 4 MoE
+JAMBA_EXPERTS = 4  # of 16, top-2: 398B parameters do not fit one card
 # Phase 8: benchmarks/pareto.py's full profile (--resnet, not --quick).
 CAL_IMAGES, HELD_OUT = 256, 64
 VARIANTS_ALL = ("p8t", "adder-tree", "cell-adc")
@@ -875,13 +917,13 @@ def phase_timings(ops, spec):
     return rows
 
 
-def lm_cfg(mode: str, arch: str = LM_ARCH, **kw):
-    """``arch``'s published CONFIG (qwen2-0.5b's by default) under
-    ``mode`` at the paper point."""
+def lm_cfg(mode: str, arch: str = LM_ARCH, smoke: bool = False, **kw):
+    """``arch``'s published CONFIG (qwen2-0.5b's by default; its SMOKE
+    with ``smoke``) under ``mode`` at the paper point."""
     from repro_torch.configs.base import CIMPolicy, get_config
     from repro_torch.core.params import PAPER_OP_16ROWS
 
-    cfg = get_config(arch)
+    cfg = get_config(arch, smoke=smoke)
     if mode != "fp":
         cfg = cfg.replace(cim=CIMPolicy(mode=mode, cim=PAPER_OP_16ROWS))
     return cfg.replace(**kw)
@@ -1146,10 +1188,12 @@ def phase_lm():
     return gen_launches, max_err, timings
 
 
-def b1_timings(ops, spec, n_layers: int, tag: str = "lm-timing") -> dict:
+def b1_timings(ops, spec, n_layers: int, tag: str = "lm-timing",
+               counts: dict | None = None) -> dict:
     """B1 per operand of one layer (as phase 6), and per kind (the first
     word of each operand's name: prefill, decode, encoder): the layer's
-    launches of that kind times ``n_layers``."""
+    launches of that kind times ``n_layers``, or each operand times its
+    launches per step in ``counts`` (name -> launches)."""
     from repro_torch.kernels import cim_mac
 
     sums = collections.defaultdict(lambda: [0.0] * 4)
@@ -1168,9 +1212,10 @@ def b1_timings(ops, spec, n_layers: int, tag: str = "lm-timing") -> dict:
         ops_ms = 2 * m * k * n * spec.weight_bits / INT8_OPS_PER_S * 1e3
         bound = max(bytes_ms, ops_ms)
         kind = name.split()[0]
+        mult = counts[name] if counts else n_layers
         count[kind] += 1
         for i, v in enumerate((ms, plain_ms, bound, device_ms)):
-            sums[kind][i] += v * n_layers
+            sums[kind][i] += v * mult
         by[kind][bytes_ms >= ops_ms] += 1
         what = "bytes" if bytes_ms >= ops_ms else "operations"
         log(f"[{tag}] gpq_matmul {name:16s} [{m}, {k}]x[{k}, {n}]: "
@@ -1182,8 +1227,9 @@ def b1_timings(ops, spec, n_layers: int, tag: str = "lm-timing") -> dict:
     for kind, (ms, plain_ms, bound, device_ms) in sums.items():
         bound_by = "bytes" if by[kind][1] >= by[kind][0] else "operations"
         out[kind] = (ms, plain_ms, bound, bound_by, device_ms)
-        log(f"[{tag}] gpq_matmul per {kind} ({n_layers} layers x "
-            f"{count[kind]} launches): kernel {ms:.4f} ms over "
+        what = (f"{sum(counts.values())} launches of {count[kind]} shapes"
+                if counts else f"{n_layers} layers x {count[kind]} launches")
+        log(f"[{tag}] gpq_matmul per {kind} ({what}): kernel {ms:.4f} ms over "
             f"back-to-back wrapper calls ({device_ms:.4f} device ms in a "
             f"graph), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
             f"({bound_by})")
@@ -1585,10 +1631,12 @@ def _b1_equal_plain(ops, spec, tag: str) -> float:
                 raise AssertionError(f"gpq_matmul != plain at {tag} {name} "
                                      f"{mode}: max |err| {err}")
             del want, got
+    shapes = collections.Counter(
+        f"[{x.shape[0]}, {x.shape[1]}]x[{w.shape[0]}, {w.shape[1]}]"
+        for _, x, w in ops)
     log(f"[{tag}] gpq_matmul == plain (torch.equal) on the {len(ops)} "
         f"operands, floor and nearest: " + ", ".join(
-            f"{nm} [{x.shape[0]}, {x.shape[1]}]x[{w.shape[0]}, "
-            f"{w.shape[1]}]" for nm, x, w in ops))
+            f"{n} x {sh}" for sh, n in shapes.items()))
     return max_err
 
 
@@ -2024,6 +2072,322 @@ def phase_autotune(whisper):
     log(f"[autotune] phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+def first_units(tree, n: int):
+    """The tree with only its first ``n`` stacked units (views): a model
+    cut to ``n`` layers where the pattern is one layer long."""
+    import torch
+
+    from repro_torch.core.engine import PlannedWeights
+
+    def cut(node):
+        if isinstance(node, dict):
+            return {k: cut(v) for k, v in node.items()}
+        if isinstance(node, PlannedWeights):
+            return dataclasses.replace(node, **{
+                f.name: getattr(node, f.name)[:n]
+                for f in dataclasses.fields(node)
+                if isinstance(getattr(node, f.name), torch.Tensor)})
+        return node[:n]
+
+    return dict(tree, units=cut(tree["units"]))
+
+
+def counted_steps(planned, cfg, prompts, per_step: int, tag: str):
+    """Prefill and one decode step through B1 with the launches and
+    resolutions of each counted: ``per_step`` explicit (p8t, cuda)
+    resolutions and B1 launches in each. Returns the logits."""
+    from repro_torch.kernels import cim_mac, dispatch
+
+    got = []
+
+    def counted(i, fn):
+        cim_mac.LAUNCHES.clear()
+        with dispatch.record_resolutions() as res:
+            out = fn()
+        got.append((collections.Counter((r.key.variant, r.key.backend,
+                                         r.source) for r in res),
+                    cim_mac.LAUNCHES["gpq_matmul"]))
+        return out
+
+    out = lm_steps(planned, cfg, prompts, 1, counted)
+    for i, (res, n) in enumerate(got):
+        if res != {("p8t", "cuda", "explicit"): per_step} or n != per_step:
+            raise AssertionError(f"[{tag}] step {i}: resolutions "
+                                 f"{dict(res)}, {n} B1 launches; want "
+                                 f"{per_step}")
+    log(f"[{tag}] prefill and a decode step at full depth: {per_step} "
+        f"explicit (p8t, cuda) resolutions and {per_step} B1 launches in "
+        f"each")
+    return out
+
+
+def equal_steps(a, b, what: str, tag: str):
+    """Each step's logits equal (torch.equal) and finite."""
+    import torch
+
+    for i, (x, y) in enumerate(zip(a, b, strict=True)):
+        if not (torch.equal(x, y) and torch.isfinite(x).all()):
+            d = (x.float() - y.float()).abs().max().item()
+            raise AssertionError(f"[{tag}] step {i}: {what} ({d})")
+
+
+def serve_modes(tag: str, cfg_of, served: dict, prompts, per_step: int,
+                check_toks):
+    """ServeEngine.generate under fp, cim-exact and cim-kernel on the host
+    clock: ``served[mode]`` is (params, plan flag). The cim-kernel run
+    launches B1 ``per_step`` times a step and its first tokens equal
+    ``check_toks``. Returns (tokens/s per mode, its B1 launches)."""
+    import numpy as np
+
+    from repro_torch.kernels import cim_mac
+    from repro_torch.serve.engine import ServeEngine
+
+    rates, launches = {}, 0
+    for mode in ("fp", "cim-exact", "cim-kernel"):
+        cfg = cfg_of(mode)
+        params, plan = served[mode]
+        eng = ServeEngine(params, cfg, max_len=FAM_PROMPT + FAM_GEN + 1,
+                          batch=FAM_BATCH, plan=plan)
+        cim_mac.LAUNCHES.clear()
+        toks, total_ms = host_ms(lambda eng=eng: eng.generate(prompts,
+                                                              FAM_GEN))
+        launched = cim_mac.LAUNCHES["gpq_matmul"]
+        _, pre_ms = host_ms(lambda eng=eng: eng._prefill(prompts))
+        dec_ms = (total_ms - pre_ms) / (FAM_GEN - 1)
+        if toks.shape != (FAM_BATCH, FAM_GEN) or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"[{tag}] {mode}: bad tokens {toks.shape}")
+        want = per_step * FAM_GEN if mode == "cim-kernel" else 0
+        if launched != want:
+            raise AssertionError(f"[{tag}] {mode}: {launched} B1 launches "
+                                 f"in generate, want {want}")
+        if mode == "cim-kernel":
+            launches = launched
+            n = check_toks.shape[1]
+            if not np.array_equal(toks[:, :n], check_toks):
+                raise AssertionError(f"[{tag}] generate's tokens != the "
+                                     "checked run's")
+        rates[mode] = FAM_BATCH * FAM_GEN / total_ms * 1e3
+        log(f"[{tag}] generate {mode:10s} batch {FAM_BATCH}, prompt "
+            f"{FAM_PROMPT}, {FAM_GEN} new tokens: {total_ms:.2f} ms, "
+            f"{rates[mode]:.2f} tokens/s; prefill {pre_ms:.3f} ms, decode "
+            f"{dec_ms:.3f} ms per step (host clock)")
+        del eng
+    return rates, launches
+
+
+def decode_shapes(ops):
+    """A decode step's captured B1 operands grouped by shape: one operand
+    of each shape ("decode [K, N]") and the launches of each per step."""
+    first, counts = {}, collections.Counter()
+    for _, x, w, _ in ops:
+        name = f"decode [{w.shape[0]}, {w.shape[1]}]"
+        first.setdefault(name, (name, x, w))
+        counts[name] += 1
+    return list(first.values()), dict(counts)
+
+
+def serve_family_model(tag: str, cfg_k, per_step: int, scan_layers: int,
+                       expert_view: bool, n_check_ops: int | None):
+    """One model of phases 12-13 (see the module docstring): B1 == plain
+    on the first ``n_check_ops`` operands of a prefill and of a decode
+    step (None: one decode operand of each shape), the launches of each
+    counted, cim-kernel == scan twin (and, with ``expert_view``, == the
+    unplanned per-call plans) at ``scan_layers`` layers (0: not here),
+    generate per mode, B1's time per decode step against its bound, one
+    profiled decode step. Returns its kernels-line entry."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import transformer
+
+    t_model = time.perf_counter()
+    spec = cfg_k.cim.cim
+    params = transformer.init(0, cfg_k, device="cuda")
+    planned = engine.plan_params(params, policy=cfg_k.cim)
+    torch.cuda.synchronize()
+    log(f"[{tag}] {cfg_k.name}: {_tree_numel(params) / 1e9:.3f} B parameters "
+        f"({cfg_k.param_dtype}), {cfg_k.n_layers} layers, d_model "
+        f"{cfg_k.d_model}, vocab {cfg_k.vocab_size}; initialised and "
+        f"planned on the card in {time.perf_counter() - t_model:.1f} s")
+    prompts = torch.from_numpy(MarkovLM(cfg_k.vocab_size, seed=0).sample(
+        FAM_BATCH, FAM_PROMPT - 1, seed=0)).long().cuda()
+
+    # B1 against its plain version on the model's own operands.
+    caches = transformer.init_caches(cfg_k, FAM_BATCH, FAM_PROMPT + 2,
+                                     device="cuda")
+    with torch.no_grad():
+        with capture_kernel_operands() as pre:
+            logits, _ = transformer.prefill(planned, prompts, caches, cfg_k)
+        with capture_kernel_operands() as dec:
+            transformer.decode_step(planned, logits.argmax(-1), FAM_PROMPT,
+                                    caches, cfg_k)
+    if len(pre) != per_step or len(dec) != per_step:
+        raise AssertionError(f"[{tag}] {len(pre)} and {len(dec)} B1 "
+                             f"operands, want {per_step}")
+    timing_ops, counts = decode_shapes(dec)
+    if n_check_ops is None:
+        ops = timing_ops
+    else:
+        ops = [(f"prefill {i}", x, w) for i, (_, x, w, _) in
+               enumerate(pre[:n_check_ops])]
+        ops += [(f"decode {i}", x, w) for i, (_, x, w, _) in
+                enumerate(dec[:n_check_ops])]
+    for name, x, w in ops:
+        m = FAM_BATCH * (FAM_PROMPT if name.startswith("prefill") else 1)
+        if x.shape[0] != m or x.dtype != torch.int32 or w.dtype != torch.int8:
+            raise AssertionError(f"[{tag}] {name}: operand {tuple(x.shape)} "
+                                 f"{x.dtype} x {tuple(w.shape)} {w.dtype}")
+    max_err = _b1_equal_plain(ops, spec, tag)
+    del pre, dec, ops, caches
+
+    # Every launch of a prefill and a decode step counted; then the kernel
+    # against the scan twin (and the unplanned per-call plans) at a depth
+    # the scan's ~30 ms a call allows.
+    kern = counted_steps(planned, cfg_k, prompts, per_step, tag)
+    check_toks = _tokens(kern)
+    del kern
+    if scan_layers:
+        cfg_s = cfg_k.replace(n_layers=scan_layers)
+        small = first_units(planned, scan_layers)
+        t0 = time.perf_counter()
+        kern = lm_steps(small, cfg_s, prompts, 1)
+        scan = lm_steps(small, scan_twin(cfg_s), prompts, 1)
+        torch.cuda.synchronize()
+        equal_steps(kern, scan, "cim-kernel logits != scan twin's", tag)
+        what = "scan twin's"
+        if expert_view:
+            plain = lm_steps(first_units(params, scan_layers), cfg_s,
+                             prompts, 1)
+            equal_steps(kern, plain, "planned expert views != per-call "
+                        "plans", tag)
+            what += (" and the unplanned model's (each expert planned per "
+                     "call)")
+        log(f"[{tag}] at {scan_layers} of {cfg_k.n_layers} layers, prefill "
+            f"and a decode step: cim-kernel logits == the {what} "
+            f"(torch.equal); {time.perf_counter() - t0:.1f} s")
+        del kern, scan, small
+
+    fp_plan = cfg_k.param_dtype == "float32"
+    served = {"fp": (params, True) if fp_plan else (planned, False),
+              "cim-exact": (planned, False), "cim-kernel": (planned, False)}
+    rates, gen_launches = serve_modes(
+        tag, lambda mode: cfg_k.replace(cim=dataclasses.replace(
+            cfg_k.cim, mode=mode)), served, prompts, per_step, check_toks)
+    if not fp_plan:
+        log(f"[{tag}] fp served the cim plans' kept {cfg_k.param_dtype} "
+            "weights (no int8 copy beside them: memory)")
+    del params, served
+
+    ms, plain_ms, bound, bound_by, device_ms = b1_timings(
+        timing_ops, spec, cfg_k.n_layers, f"{tag}-timing", counts)["decode"]
+    lm_profile(planned, cfg_k, prompts)
+    log(f"[{tag}] {cfg_k.name}: {time.perf_counter() - t_model:.1f} s")
+    b1 = KERNELS[0]
+    return {
+        "name": b1.name,
+        "path": f"{cfg_k.name} decode step ({per_step} launches)",
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{b1.name}.cu",
+        "replaces": b1.replaces, "launches": gen_launches,
+        "max_abs_err": max_err, "ms": ms, "device_ms": device_ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": None, "tokens_per_s": rates,
+    }
+
+
+def check_published(cfg, got: tuple, want: tuple):
+    """The widths (and depth) the phase names are the config's."""
+    if got != want:
+        raise AssertionError(f"{cfg.name}: {got}, published {want}")
+
+
+def phase_moe(card: str):
+    """Phase 12: granite-moe-1b at full width and depth, qwen2-moe-a2.7b
+    at full width, cut in depth (see the module docstring). Returns their
+    kernels-line entries."""
+    import torch
+
+    t_phase = time.perf_counter()
+    entries = []
+    cfg = lm_cfg("cim-kernel", arch="granite_moe_1b")
+    mo = cfg.moe
+    check_published(cfg, (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                          cfg.n_kv_heads, mo.n_experts, mo.top_k,
+                          mo.d_expert, cfg.vocab_size),
+                    (24, 1024, 16, 8, 32, 8, 512, 49155))
+    per_step = cfg.n_layers * (4 + 3 * mo.n_experts)  # 2400
+    entries.append(serve_family_model("moe-granite", cfg, per_step,
+                                      GRANITE_SCAN_LAYERS, True,
+                                      4 + 3 * mo.n_experts))
+    torch.cuda.empty_cache()
+    cfg = lm_cfg("cim-kernel", arch="qwen2_moe_a2_7b", n_layers=QMOE_LAYERS)
+    mo = cfg.moe
+    check_published(cfg, (cfg.d_model, mo.n_experts, mo.top_k, mo.d_expert,
+                          mo.d_shared), (2048, 60, 4, 1408, 5632))
+    per_layer = 4 + 3 * mo.n_experts + 3  # 187
+    entries.append(serve_family_model("moe-qwen2", cfg,
+                                      QMOE_LAYERS * per_layer,
+                                      QMOE_SCAN_LAYERS, True, per_layer))
+    torch.cuda.empty_cache()
+    log(f"[moe] {card}; phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def phase_recurrent(card: str):
+    """Phase 13: rwkv6-1.6b at full width and depth, one pattern unit of
+    jamba-1.5-large at full width with 4 of its 16 experts, and jamba
+    SMOKE's kernel logits against the scan twin's (see the module
+    docstring). Returns their kernels-line entries."""
+    import torch
+
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.models import transformer
+
+    t_phase = time.perf_counter()
+    entries = []
+    cfg = lm_cfg("cim-kernel", arch="rwkv6_1_6b")
+    check_published(cfg, (cfg.n_layers, cfg.d_model, cfg.rwkv.head_size,
+                          cfg.d_ff, cfg.vocab_size),
+                    (24, 2048, 64, 7168, 65536))
+    per_step = cfg.n_layers * 8  # r, k, v, g, o; channel-mix k, v, r
+    entries.append(serve_family_model("rwkv", cfg, per_step,
+                                      RWKV_SCAN_LAYERS, False, 8))
+    torch.cuda.empty_cache()
+
+    # jamba SMOKE: kernel == scan twin over a prefill and 2 decode steps.
+    small = lm_cfg("cim-kernel", arch="jamba_1_5_large", smoke=True)
+    sp = engine.plan_params(transformer.init(0, small, device="cuda"),
+                            policy=small.cim)
+    toks = torch.from_numpy(MarkovLM(small.vocab_size, seed=0).sample(
+        FAM_BATCH, FAM_PROMPT - 1, seed=0)).long().cuda()
+    kern = lm_steps(sp, small, toks, 2)
+    scan = lm_steps(sp, scan_twin(small), toks, 2)
+    equal_steps(kern, scan, "jamba SMOKE cim-kernel != scan twin", "jamba")
+    log(f"[jamba] SMOKE ({small.n_layers} layers, d_model {small.d_model}, "
+        f"{small.moe.n_experts} experts): prefill and 2 decode steps, "
+        "cim-kernel logits == scan twin's (torch.equal)")
+    del sp, kern, scan
+
+    cfg = lm_cfg("cim-kernel", arch="jamba_1_5_large")
+    check_published(cfg, (cfg.d_model, cfg.d_ff, cfg.n_heads,
+                          cfg.n_kv_heads, cfg.mamba.d_state,
+                          cfg.mamba.expand), (8192, 24576, 64, 8, 16, 2))
+    cfg = cfg.replace(n_layers=JAMBA_LAYERS, moe=dataclasses.replace(
+        cfg.moe, n_experts=JAMBA_EXPERTS))
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    moe_layers = [i for i in range(cfg.n_layers) if cfg.layer_uses_moe(i)]
+    per_step = (4 * kinds.count("attn") + 2 * kinds.count("mamba")
+                + 3 * (cfg.n_layers - len(moe_layers))
+                + 3 * JAMBA_EXPERTS * len(moe_layers))  # 78
+    entries.append(serve_family_model("jamba", cfg, per_step, 0, False,
+                                      None))
+    torch.cuda.empty_cache()
+    log(f"[recurrent] {card}; phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -2055,6 +2419,9 @@ def main() -> int:
     wh_entries, whisper = phase_whisper()
     vlm_entry = phase_vlm()
     phase_autotune(whisper)
+    del whisper
+    torch.cuda.empty_cache()
+    fam_entries = phase_moe(card) + phase_recurrent(card)
 
     report = {"kernels": [{
         "name": kern.name,
@@ -2091,7 +2458,7 @@ def main() -> int:
         "prefill_plain_ms": lm_t["prefill"][1],
         "prefill_bound_ms": lm_t["prefill"][2],
     })
-    report["kernels"] += cal_entries + wh_entries + [vlm_entry]
+    report["kernels"] += cal_entries + wh_entries + [vlm_entry] + fam_entries
     log(json.dumps(report))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -100,7 +100,8 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     # Layer pattern, cycled across the stack: gemma3 = 5 local + 1
-    # global, dense = all 'attn'.
+    # global, jamba = 1 attn + 7 mamba, rwkv = all 'rwkv', dense = all
+    # 'attn'.
     layer_pattern: tuple[LayerKind, ...] = ("attn",)
     window_size: int = 0  # for 'attn_local'
     max_seq_len: int = 131_072
@@ -273,15 +274,6 @@ FULL_ATTENTION_ARCHS = frozenset(
     }
 )
 
-# Archs of ARCH_IDS whose layers the port does not run yet, with the
-# ROADMAP.md item that brings them.
-_NOT_PORTED = {
-    "jamba_1_5_large": "A11 (slice 6: mamba layers and MoE)",
-    "qwen2_moe_a2_7b": "A11 (slice 6: MoE)",
-    "granite_moe_1b": "A11 (slice 6: MoE)",
-    "rwkv6_1_6b": "A11 (slice 6: rwkv layers)",
-}
-
 
 def shape_cells(arch_id: str) -> list[str]:
     """The assigned shape cells for one arch, with documented skips."""
@@ -299,9 +291,5 @@ def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
                        "repro_torch.configs.resnet")
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch '{arch_id}'; known: {ARCH_IDS}")
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch '{arch_id}' is not ported yet: ROADMAP.md "
-            f"{_NOT_PORTED[arch_id]}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.SMOKE if smoke else mod.CONFIG

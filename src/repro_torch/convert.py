@@ -1,14 +1,15 @@
 """Carry weights across from the JAX package's trees to the port's tensors.
 
-The JAX package's parameter, BatchNorm-state, plan and KV-cache trees are
+The JAX package's parameter, BatchNorm-state, plan and cache trees are
 nested dicts of arrays, of its ``PlannedWeights`` dataclass and of its
-``KVCache`` named tuple (as its ``checkpoint.store.restore``,
-``models.transformer.init``, ``core.engine.plan_params`` or
-``models.transformer.init_caches`` give them). ``to_torch`` turns such a
+``KVCache``, ``MambaCache`` and ``RWKVCache`` named tuples (as its
+``checkpoint.store.restore``, ``models.transformer.init``,
+``core.engine.plan_params`` or ``models.transformer.init_caches`` give
+them). ``to_torch`` turns such a
 tree, with numpy (or any array-protocol) leaves, into the same nesting
 on a device: same names, same layouts (HWIO filters, [K, N] matrices,
 stacked [U, ...] units), same dtypes (bfloat16 and float8_e4m3fn too),
-with the port's ``PlannedWeights`` and ``KVCache`` in place of the JAX
+with the port's ``PlannedWeights`` and caches in place of the JAX
 package's. The checkpoint reader and the parity tests both go through
 it.
 """
@@ -41,10 +42,12 @@ def _tensor(leaf: Any, device) -> torch.Tensor:
 
 
 def to_torch(tree: Any, *, device: str | torch.device = "cuda") -> Any:
-    """Nested dict / plan / KV cache of arrays -> the same nesting of
-    tensors."""
+    """Nested dict / plan / cache (KV, mamba or rwkv) of arrays -> the
+    same nesting of tensors."""
     from repro_torch.core.engine import PlannedWeights
     from repro_torch.models.attention import KVCache
+    from repro_torch.models.mamba import MambaCache
+    from repro_torch.models.rwkv import RWKVCache
 
     if tree is None:
         return None
@@ -56,6 +59,8 @@ def to_torch(tree: Any, *, device: str | torch.device = "cuda") -> Any:
         return PlannedWeights(**{
             k: v if k == "weight_bits" else to_torch(v, device=device)
             for k, v in fields.items()})
-    if isinstance(tree, tuple) and getattr(tree, "_fields", None) == ("k", "v"):
-        return KVCache(*(to_torch(c, device=device) for c in tree))
+    caches = {c._fields: c for c in (KVCache, MambaCache, RWKVCache)}
+    if isinstance(tree, tuple) and getattr(tree, "_fields", None) in caches:
+        return caches[tree._fields](*(to_torch(c, device=device)
+                                      for c in tree))
     return _tensor(tree, device)

@@ -114,10 +114,12 @@ class PlannedWeights:
         return self.dequantized(dtype)
 
     def layer(self, i: int) -> "PlannedWeights":
-        """The plan of layer ``i`` of a stacked [U, K, N] plan: a view of
-        each field's slice ``i``, as the JAX package's ``lax.scan`` over
-        stacked units slices the plan's pytree. Stacked plans carry no
-        planes or slots (those are built for 2-D weights only)."""
+        """The plan of layer ``i`` of a stacked [U, K, N] plan, or of
+        expert ``i`` of an [E, K, N] bank (of a [U, E, K, N] one, take
+        the unit first): a view of each field's slice ``i``, as the JAX
+        package's ``lax.scan`` over stacked units slices the plan's
+        pytree. Stacked plans carry no planes or slots (those are built
+        for 2-D weights only)."""
         if self.planes is not None or self.slots is not None:
             raise ValueError("a plan with planes or slots is not stacked")
         return dataclasses.replace(

@@ -315,7 +315,9 @@ def cache_from_records(
 
 
 def _default_device() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """Sweeps run on the card unless the caller asks for the CPU
+    (``device="cpu"``); without a card a sweep that does not ask fails."""
+    return "cuda"
 
 
 def default_candidates(
@@ -327,9 +329,9 @@ def default_candidates(
 ) -> tuple[Candidate, ...]:
     """Candidate (backend, block) pairs for one variant, in
     ``dispatch.backends_for`` order: scan, ref and slots, then on a CUDA
-    sweep (``include_cuda``, default: ``device`` is a card) the variant's
-    kernel at each column tile it is built for, as
-    ``dispatch.cuda_block(rows, bn)``."""
+    sweep (``include_cuda``, default: ``device`` is a card, as it is when
+    not given) the variant's kernel at each column tile it is built for,
+    as ``dispatch.cuda_block(rows, bn)``."""
     if include_cuda is None:
         include_cuda = torch.device(device or _default_device()).type == "cuda"
     cands: list[Candidate] = []
@@ -415,8 +417,8 @@ def sweep_shape(
     seed: int = 0,
     device: str | torch.device | None = None,
 ) -> Winner:
-    """Time every candidate at one shape on ``device`` (default: the card
-    where there is one); return the pinned winner.
+    """Time every candidate at one shape on ``device`` (default: the card;
+    a CPU sweep passes ``device="cpu"``); return the pinned winner.
 
     Each candidate runs on the operands a served plan provides
     (:func:`sweep_operands`), so plan-dependent backends ("slots") are

@@ -59,14 +59,19 @@ def _init_one(generator: torch.Generator, spec: ParamSpec) -> torch.Tensor:
     raise ValueError(f"unknown init '{spec.init}'")
 
 
-def init_params(generator: torch.Generator, spec_tree: Any) -> Any:
+def init_params(generator: torch.Generator, spec_tree: Any,
+                dtype: torch.dtype | None = None) -> Any:
     """Materialize a (nested dict of) ParamSpec into tensors, drawn in
     order from ``generator`` on its device (the JAX package's
     ``jax.random`` streams cannot be replayed; its parameters come across
-    with ``convert.to_torch``)."""
+    with ``convert.to_torch``). ``dtype`` casts each leaf as it is drawn:
+    the values a cast of the whole tree gives, at the peak memory of one
+    float32 leaf."""
     if isinstance(spec_tree, ParamSpec):
-        return _init_one(generator, spec_tree)
-    return {k: init_params(generator, v) for k, v in spec_tree.items()}
+        leaf = _init_one(generator, spec_tree)
+        return leaf if dtype is None else leaf.to(dtype)
+    return {k: init_params(generator, v, dtype)
+            for k, v in spec_tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -182,6 +187,11 @@ def _sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.reciprocal(1 + torch.exp(-x))
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x * sigmoid(x)``, rounded per op (``_sigmoid``)."""
+    return x * _sigmoid(x)
+
+
 # The smallest normal float32: XLA on the CPU runs bfloat16 elementwise
 # ops in float32 and flushes results below it to zero.
 _F32_TINY = 2.0 ** -126
@@ -220,7 +230,7 @@ def mlp_apply(
     if act == "silu":
         g = linear_apply(params["gate"], x, policy, cim_enabled=en)
         u = linear_apply(params["up"], x, policy, cim_enabled=en)
-        h = g * _sigmoid(g) * u  # jax.nn.silu: x * sigmoid(x)
+        h = silu(g) * u
     else:
         u = linear_apply(params["up"], x, policy, cim_enabled=en)
         h = _gelu_tanh(u)  # jax.nn.gelu's default

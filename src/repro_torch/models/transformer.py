@@ -1,25 +1,26 @@
-"""The dense LM stack: one config-driven decoder over the CIM engine.
+"""The LM stack: one config-driven decoder over the CIM engine.
 
 A model is a repeating *pattern unit* of layers (gemma3: 5 local + 1
-global; dense: one attn layer). Units with identical structure are
+global; jamba: 1 attn + 7 mamba with MoE on every 2nd layer; rwkv: one
+rwkv layer; dense: one attn layer). Units with identical structure are
 stacked under ``params["units"]`` (every leaf gains a leading [U] dim,
 as the JAX package stacks them for ``lax.scan``); the non-multiple
 remainder runs unrolled as ``tail_XX`` layers. Here the scan is a Python
 loop over the stacked index: each unit's parameters are views of the
-stacked tensors (``PlannedWeights.layer`` for plans) and its KV caches
-are views of the stacked caches, written in place.
+stacked tensors (``PlannedWeights.layer`` for plans) and its caches are
+views of the stacked caches. KV caches are written in place; a recurrent
+state (mamba, rwkv) is copied back into its stacked cache after each
+prefill and decode step, rounded to the cache's dtype as the JAX
+package's scan carry is, while a tail layer keeps the state it returns.
 
 Entry points:
   init(seed, cfg, device=)              -> params
-  forward_train(params, batch, cfg)     -> logits, aux (forward only)
+  forward_train(params, batch, cfg)     -> logits, MoE aux (forward only)
   init_caches / prefill / decode_step   -> the serving path
 The encoder-decoder (whisper) adds ``encode`` and cross-attention in the
 decoder (``memory=`` in prefill and decode_step); the modality frontends
 are embedding stubs (``batch["frontend_embeds"]`` is prepended to the
 text in ``forward_train``; serving is text only, as in the JAX package).
-
-Layer kinds mamba and rwkv and MoE MLPs are not ported yet and raise,
-naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,25 +31,11 @@ import torch
 
 from repro_torch.configs.base import CIMPolicy, ModelConfig
 from repro_torch.core.engine import PlannedWeights
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, mamba, moe, rwkv
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import ParamSpec
 
 Params = dict[str, Any]
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    missing = []
-    if cfg.moe is not None:
-        missing.append("MoE MLPs (slice 6, A11)")
-    kinds = {cfg.layer_kind(i) for i in range(cfg.n_layers)}
-    if kinds - {"attn", "attn_local"}:
-        missing.append(f"{sorted(kinds - {'attn', 'attn_local'})} layers "
-                       "(slice 6, A11)")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {'; '.join(missing)} of "
-            "ROADMAP.md")
 
 
 # ---------------------------------------------------------------------------
@@ -56,15 +43,33 @@ def _check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _layer_spec(cfg: ModelConfig, *, cross: bool = False) -> dict:
-    spec = {"norm1": common.rmsnorm_spec(cfg.d_model),
-            "attn": attention.attn_spec(cfg)}
+def _layer_spec(cfg: ModelConfig, layer_idx: int, *, cross: bool = False
+                ) -> dict:
+    kind = cfg.layer_kind(layer_idx)
+    spec: dict = {"norm1": common.rmsnorm_spec(cfg.d_model)}
+    if kind in ("attn", "attn_local"):
+        spec["attn"] = attention.attn_spec(cfg)
+    elif kind == "mamba":
+        spec["mamba"] = mamba.mamba_spec(cfg)
+    else:  # rwkv
+        spec["tm"] = rwkv.rwkv_spec(cfg)
     if cross:
         spec["norm_x"] = common.rmsnorm_spec(cfg.d_model)
         spec["xattn"] = attention.attn_spec(cfg)
     spec["norm2"] = common.rmsnorm_spec(cfg.d_model)
-    spec["mlp"] = common.mlp_spec(cfg.d_model, cfg.d_ff, cfg.mlp_act)
+    if kind == "rwkv":
+        spec["cm"] = rwkv.channelmix_spec(cfg)
+    elif cfg.layer_uses_moe(layer_idx):
+        spec["moe"] = moe.moe_spec(cfg)
+    else:
+        spec["mlp"] = common.mlp_spec(cfg.d_model, cfg.d_ff, cfg.mlp_act)
     return spec
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's layers: self-attention and the dense MLP."""
+    return cfg.replace(is_encoder_decoder=False, layer_pattern=("attn",),
+                       moe=None)
 
 
 def _stack_spec(spec: Any, n: int) -> Any:
@@ -84,7 +89,6 @@ def _unit_split(cfg: ModelConfig) -> tuple[int, int, int]:
 
 
 def model_spec(cfg: ModelConfig) -> dict:
-    _check_ported(cfg)
     p, n_units, n_tail = _unit_split(cfg)
     cross = cfg.is_encoder_decoder
     spec: dict = {
@@ -96,13 +100,14 @@ def model_spec(cfg: ModelConfig) -> dict:
             cfg.d_model, cfg.padded_vocab, "embed", "vocab"
         )
     if n_units:
-        unit = {f"layer_{j:02d}": _layer_spec(cfg, cross=cross)
+        unit = {f"layer_{j:02d}": _layer_spec(cfg, j, cross=cross)
                 for j in range(p)}
         spec["units"] = _stack_spec(unit, n_units)
     for t in range(n_tail):
-        spec[f"tail_{t:02d}"] = _layer_spec(cfg, cross=cross)
-    if cross:  # encoder layers: self-attention and the MLP
-        spec["encoder"] = {f"enc_{j:02d}": _layer_spec(cfg)
+        spec[f"tail_{t:02d}"] = _layer_spec(cfg, n_units * p + t,
+                                            cross=cross)
+    if cross:
+        spec["encoder"] = {f"enc_{j:02d}": _layer_spec(_encoder_cfg(cfg), j)
                            for j in range(cfg.n_encoder_layers)}
         spec["enc_norm"] = common.rmsnorm_spec(cfg.d_model)
     if cfg.learned_pos_emb:
@@ -115,25 +120,43 @@ def init(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
     """Random parameters at ``cfg``'s widths, drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = common.init_params(gen, model_spec(cfg))
-    return _map(lambda a: a.to(getattr(torch, cfg.param_dtype)), params)
+    params = common.init_params(gen, model_spec(cfg),
+                                dtype=getattr(torch, cfg.param_dtype))
+    return _apply_special_inits(params, cfg)
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+def _apply_special_inits(params: Params, cfg: ModelConfig) -> Params:
+    """S4D-real init of every mamba ``a_log`` leaf, stacked or not:
+    log(1..d_state) along the last axis."""
+    if cfg.mamba is None:
+        return params
+
+    def fix(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = fix(v)
+            elif k == "a_log":
+                base = torch.log(torch.arange(
+                    1, cfg.mamba.d_state + 1, dtype=torch.float32,
+                    device=v.device))
+                out[k] = base.expand(v.shape).to(v.dtype).clone()
+            else:
+                out[k] = v
+        return out
+
+    return fix(params)
 
 
 def _unit(tree: Any, u: int) -> Any:
     """Slice ``u`` of every leaf of a stacked params or caches tree (views:
-    cache writes land in the stacked tensors)."""
+    writes land in the stacked tensors)."""
     if isinstance(tree, dict):
         return {k: _unit(v, u) for k, v in tree.items()}
     if isinstance(tree, PlannedWeights):
         return tree.layer(u)
-    if isinstance(tree, KVCache):
-        return KVCache(tree.k[u], tree.v[u])
+    if isinstance(tree, tuple):  # KVCache, MambaCache, RWKVCache
+        return type(tree)(*(c[u] for c in tree))
     return tree[u]
 
 
@@ -151,8 +174,23 @@ def _layers(params: Params, cfg: ModelConfig):
 
 def _cache_at(caches, path):
     if path[0] == "units":
-        return KVCache(*(c[path[1]] for c in caches["units"][path[2]]))
+        return _unit(caches["units"][path[2]], path[1])
     return caches[path[0]]
+
+
+def _put_cache(caches, path, cache) -> None:
+    """Store a layer's new cache: a recurrent state is copied into its
+    stacked cache, rounded to that cache's dtype (the JAX package casts
+    its scan carry back), or replaces a tail layer's (which keeps the
+    dtypes the layer returned). KV caches were written in place."""
+    if isinstance(cache, KVCache):
+        return
+    if path[0] == "units":
+        for stacked, new in zip(caches["units"][path[2]], cache,
+                                strict=True):
+            stacked[path[1]].copy_(new)
+    else:
+        caches[path[0]] = cache
 
 
 # ---------------------------------------------------------------------------
@@ -173,16 +211,68 @@ def _memory_kv(lp, memory, cfg, policy):
                                       policy=policy)
 
 
-def _mlp_residual(lp, x, cfg, policy, mkv=None):
-    """The cross-attention residual against ``mkv`` (``_memory_kv``'s),
-    when given, then the MLP residual."""
+def _layer(lp, x, cfg: ModelConfig, li: int, *, policy, positions=None,
+           cache=None, pos: int | None = None, mkv=None):
+    """One decoder layer: the full forward (``cache`` None), the prefill
+    (a cache, ``pos`` None) or one decode step at ``pos``. Returns (x, the
+    layer's new cache or None, its MoE aux loss or None)."""
+    kind = cfg.layer_kind(li)
+    decode = pos is not None
+    h = common.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
+    if kind in ("attn", "attn_local"):
+        window = _window(cfg, li)
+        if cache is None:
+            a = attention.attend_full(lp["attn"], h, cfg, positions=positions,
+                                      window=window, policy=policy)
+        elif not decode:
+            a, cache = attention.prefill_cache(
+                lp["attn"], h, cfg, cache, positions=positions,
+                window=window, policy=policy)
+        else:
+            a, cache = attention.decode_step(lp["attn"], h, cfg, cache, pos,
+                                             window=window, policy=policy)
+    elif kind == "mamba":
+        if cache is None:
+            a = mamba.mamba_apply(lp["mamba"], h, cfg, policy=policy)
+        elif not decode:
+            a, mc = mamba.mamba_apply(lp["mamba"], h, cfg, policy=policy,
+                                      return_cache=True)
+            cache = mamba.MambaCache(*(n.to(o.dtype)
+                                       for o, n in zip(cache, mc)))
+        else:
+            a, cache = mamba.mamba_decode_step(lp["mamba"], h, cfg, cache,
+                                               policy=policy)
+    else:  # rwkv; a decode step is the one-token scan (chunk 1)
+        if decode:
+            h = h.to(cache.shift_tm.dtype)
+        a, s_tm, state = rwkv.timemix_apply(
+            lp["tm"], h, cfg, shift_state=cache.shift_tm if decode else None,
+            wkv_state=None if cache is None else cache.state,
+            chunk=1 if decode else 128, policy=policy)
+        if cache is not None:
+            cache = cache._replace(shift_tm=s_tm.to(cache.shift_tm.dtype),
+                                   state=state.to(cache.state.dtype))
+    x = x + a.to(x.dtype)
     if mkv is not None:
         hx = common.rmsnorm_apply(lp["norm_x"], x, cfg.norm_eps)
         x = x + attention.cross_attend(lp["xattn"], hx, mkv, cfg,
                                        policy=policy)
     h = common.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
-    m = common.mlp_apply(lp["mlp"], h, cfg.mlp_act, policy)
-    return x + m.to(x.dtype)
+    aux = None
+    if kind == "rwkv":
+        if decode:
+            h = h.to(cache.shift_cm.dtype)
+        m, s_cm = rwkv.channelmix_apply(
+            lp["cm"], h, cfg, shift_state=cache.shift_cm if decode else None,
+            policy=policy)
+        if cache is not None:
+            cache = cache._replace(shift_cm=s_cm.to(cache.shift_cm.dtype))
+    elif "moe" in lp:
+        m, metrics = moe.moe_apply(lp["moe"], h, cfg, policy=policy)
+        aux = metrics.aux_loss
+    else:
+        m = common.mlp_apply(lp["mlp"], h, cfg.mlp_act, policy)
+    return x + m.to(x.dtype), cache, aux
 
 
 def _embed(params, tokens, cfg: ModelConfig):
@@ -237,7 +327,9 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
         a = attention._gqa_core(q, k, v, None)
         x = x + common.linear_apply(lp["attn"]["wo"],
                                     a.reshape(b, s, cfg.q_dim), policy)
-        x = _mlp_residual(lp, x, cfg, policy)
+        h = common.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
+        x = x + common.mlp_apply(lp["mlp"], h, cfg.mlp_act, policy).to(
+            x.dtype)
     return common.rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -248,7 +340,8 @@ def forward_train(
     ``batch["frontend_embeds"]`` [B, F, D] where the config has a frontend
     (the logits then cover F + S positions), with cross-attention to
     ``encode(batch["encoder_frames"])`` in an encoder-decoder; returns
-    (logits, total MoE aux = 0). Forward only: training is slice 6."""
+    (logits, the MoE aux losses summed over layers). Forward only:
+    training is ROADMAP A item 1.3."""
     policy = cfg.cim
     x = _embed(params, batch["tokens"], cfg)
     if cfg.frontend and "frontend_embeds" in batch:
@@ -259,13 +352,12 @@ def forward_train(
     memory = None
     if cfg.is_encoder_decoder:
         memory = encode(params, batch["encoder_frames"], cfg, policy)
-    for li, lp, _ in _layers(params, cfg):
-        mkv = _memory_kv(lp, memory, cfg, policy)
-        h = common.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
-        a = attention.attend_full(lp["attn"], h, cfg, positions=positions,
-                                  window=_window(cfg, li), policy=policy)
-        x = _mlp_residual(lp, x + a.to(x.dtype), cfg, policy, mkv)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li, lp, _ in _layers(params, cfg):
+        x, _, a = _layer(lp, x, cfg, li, policy=policy, positions=positions,
+                         mkv=_memory_kv(lp, memory, cfg, policy))
+        if a is not None:
+            aux = aux + a
     return _logits(params, x, cfg, policy), aux
 
 
@@ -274,31 +366,37 @@ def forward_train(
 # ---------------------------------------------------------------------------
 
 
-def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                dtype=torch.bfloat16, *, device="cuda") -> dict:
-    """KV caches of every layer: ``units`` (stacked [U, ...] per pattern
-    layer) and ``tail_XX``. A ``kv_cache_dtype`` other than bfloat16
-    (float8_e4m3fn) overrides ``dtype``."""
-    _check_ported(cfg)
-    p, n_units, n_tail = _unit_split(cfg)
+def _layer_cache(cfg: ModelConfig, li: int, batch: int, max_len: int,
+                 dtype, device):
+    kind = cfg.layer_kind(li)
+    if kind == "mamba":
+        return mamba.init_cache(cfg, batch, dtype=dtype, device=device)
+    if kind == "rwkv":
+        return rwkv.init_cache(cfg, batch, dtype=dtype, device=device)
+    # A kv_cache_dtype other than bfloat16 (float8_e4m3fn) overrides dtype
+    # for KV caches; recurrent states keep the caller's dtype.
     if cfg.kv_cache_dtype != "bfloat16":
         dtype = getattr(torch, cfg.kv_cache_dtype)
+    return attention.init_cache(cfg, batch, max_len, window=_window(cfg, li),
+                                dtype=dtype, device=device)
 
-    def layer_cache(li: int) -> KVCache:
-        return attention.init_cache(cfg, batch, max_len,
-                                    window=_window(cfg, li), dtype=dtype,
-                                    device=device)
 
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, *, device="cuda") -> dict:
+    """Every layer's cache (KVCache, MambaCache or RWKVCache): ``units``
+    (stacked [U, ...] per pattern layer) and ``tail_XX``."""
+    p, n_units, n_tail = _unit_split(cfg)
     caches: dict = {}
     if n_units:
         caches["units"] = {}
         for j in range(p):
-            one = layer_cache(j)
-            caches["units"][f"layer_{j:02d}"] = KVCache(
+            one = _layer_cache(cfg, j, batch, max_len, dtype, device)
+            caches["units"][f"layer_{j:02d}"] = type(one)(
                 *(torch.zeros((n_units,) + c.shape, dtype=c.dtype,
                               device=c.device) for c in one))
     for t in range(n_tail):
-        caches[f"tail_{t:02d}"] = layer_cache(n_units * p + t)
+        caches[f"tail_{t:02d}"] = _layer_cache(cfg, n_units * p + t, batch,
+                                               max_len, dtype, device)
     return caches
 
 
@@ -308,18 +406,17 @@ def prefill(
 ) -> tuple[torch.Tensor, dict]:
     """Process the prompt [B, S] (cross-attending to the encoder output
     ``memory`` [B, T, D], whose K/V each layer projects anew); returns
-    (last-position logits [B, V], caches), the caches written in place."""
+    (last-position logits [B, V], caches), the caches updated in place."""
     policy = cfg.cim
     x = _add_pos(params, _embed(params, tokens, cfg), cfg)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     for li, lp, path in _layers(params, cfg):
-        mkv = _memory_kv(lp, memory, cfg, policy)
-        h = common.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
-        a, _ = attention.prefill_cache(
-            lp["attn"], h, cfg, _cache_at(caches, path),
-            positions=positions, window=_window(cfg, li), policy=policy)
-        x = _mlp_residual(lp, x + a.to(x.dtype), cfg, policy, mkv)
+        x, cache, _ = _layer(lp, x, cfg, li, policy=policy,
+                             positions=positions,
+                             cache=_cache_at(caches, path),
+                             mkv=_memory_kv(lp, memory, cfg, policy))
+        _put_cache(caches, path, cache)
     logits = _logits(params, x[:, -1:], cfg, policy)
     return logits[:, 0], caches
 
@@ -329,16 +426,14 @@ def decode_step(
     cfg: ModelConfig, *, memory: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """One serving step: the token [B] at position ``pos`` -> next-token
-    logits [B, V], the caches written in place. With ``memory`` (the
+    logits [B, V], the caches updated in place. With ``memory`` (the
     encoder output) every layer projects its cross-attention K/V anew in
     each step, as the JAX package does."""
     policy = cfg.cim
     x = _add_pos(params, _embed(params, token[:, None], cfg), cfg, pos)
     for li, lp, path in _layers(params, cfg):
-        mkv = _memory_kv(lp, memory, cfg, policy)
-        h = common.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
-        a, _ = attention.decode_step(
-            lp["attn"], h, cfg, _cache_at(caches, path), pos,
-            window=_window(cfg, li), policy=policy)
-        x = _mlp_residual(lp, x + a.to(x.dtype), cfg, policy, mkv)
+        x, cache, _ = _layer(lp, x, cfg, li, policy=policy,
+                             cache=_cache_at(caches, path), pos=pos,
+                             mkv=_memory_kv(lp, memory, cfg, policy))
+        _put_cache(caches, path, cache)
     return _logits(params, x, cfg, policy)[:, 0], caches

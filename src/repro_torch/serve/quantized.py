@@ -29,8 +29,8 @@ def dequantize_weight(q: PlannedWeights, dtype) -> torch.Tensor:
 def maybe_dequant(w, dtype) -> torch.Tensor:
     """Pass-through for plain tensors; dequantize the int8 serving form.
     PlannedWeights that kept their float weights (CIM plans) read those
-    back exactly. For modules that index weight leaves directly (slice
-    6's MoE banks and mamba projections)."""
+    back exactly. For modules that index weight leaves directly (the MoE
+    expert banks, mamba's x_proj and dt_proj)."""
     if isinstance(w, PlannedWeights):
         return w.best_weights(dtype)
     return w.to(dtype)

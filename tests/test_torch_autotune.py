@@ -419,3 +419,32 @@ def test_register_tuned_backend_pins_block_through_dispatch():
             ops.register_tuned_backend(bn=0)
     finally:
         engine._BACKENDS.pop(name)
+
+
+def test_sweeps_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Without ``device=`` a sweep and its candidates are the card's; only
+    ``device="cpu"`` sweeps on the CPU (here, without a card, the card's
+    sweep fails where its operands are made)."""
+    seen = []
+    real = autotune.sweep_operands
+
+    def operands(spec, m, k, n, *, seed=0, device="cpu"):
+        seen.append(torch.device(device).type)
+        if torch.device(device).type == "cuda":
+            raise RuntimeError("no card here")
+        return real(spec, m, k, n, seed=seed, device=device)
+
+    monkeypatch.setattr(autotune, "sweep_operands", operands)
+    assert ("cuda", dispatch.cuda_block(16, 16)) in \
+        autotune.default_candidates("p8t")
+    with pytest.raises(RuntimeError, match="no card"):
+        autotune.sweep_shape("p8t", OP, 4, 64, 8,
+                             measure=fake_measure(TABLES[0]))
+    with pytest.raises(RuntimeError, match="no card"):
+        autotune.autotune([(4, 64, 8)], OP, variants=("p8t",), arch="sm90",
+                          save=False, activate=False, merge=False,
+                          measure=fake_measure(TABLES[0]))
+    assert seen == ["cuda", "cuda"]
+    win = autotune.sweep_shape("p8t", OP, 4, 64, 8, device="cpu",
+                               measure=fake_measure(TABLES[0]))
+    assert win.backend == "ref" and seen[-1] == "cpu"

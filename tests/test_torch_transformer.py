@@ -136,25 +136,24 @@ def test_registry_records_equal_reference():
         24, 896, 14, 2, 64, 4864, 151936, 152064)
 
 
-# Ported after the dense archs (the encoder-decoder and the VLM frontend
-# stub); tests/test_torch_whisper.py runs them.
-LATER = ("whisper_tiny", "internvl2_2b")
-
-
 @pytest.mark.parametrize("arch", sorted(set(jbase.ARCH_IDS) - set(DENSE)))
 def test_unported_archs_raise_naming_their_slice(arch):
-    """The archs of slice 6 (A11) raise naming their ROADMAP item; the
-    whisper and internvl2 configs load and equal the reference's."""
-    if arch in LATER:
-        for smoke in (False, True):
-            j = jbase.get_config(arch, smoke=smoke)
-            t = tbase.get_config(arch, smoke=smoke)
-            assert _fields(t) == _fields(j)
-            assert t.padded_vocab == j.padded_vocab
-            assert t.param_count() == j.param_count()
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-            tbase.get_config(arch)
+    """Every arch of the registry is ported now: the encoder-decoder, the
+    VLM stub and the MoE, RWKV-6 and jamba archs load, CONFIG and SMOKE,
+    equal field for field to the reference's (parameter counts, the layer
+    pattern and the MoE layers too); an unknown arch still raises."""
+    for smoke in (False, True):
+        j = jbase.get_config(arch, smoke=smoke)
+        t = tbase.get_config(arch, smoke=smoke)
+        assert _fields(t) == _fields(j)
+        assert t.padded_vocab == j.padded_vocab
+        assert t.pattern_len == j.pattern_len
+        assert t.param_count() == j.param_count()
+        assert t.active_param_count() == j.active_param_count()
+        for i in range(j.n_layers):
+            assert t.layer_kind(i) == j.layer_kind(i)
+            assert t.layer_uses_moe(i) == j.layer_uses_moe(i)
+        assert tt._unit_split(t) == jt._unit_split(j)
     with pytest.raises(KeyError):
         tbase.get_config("no_such_arch")
 
@@ -661,14 +660,34 @@ def test_markov_lm_equal():
 
 
 def test_unported_layer_kinds_raise():
-    """mamba layers and MoE MLPs (A11) raise; a frontend stub and
-    cross-attention, ported with whisper, build the reference's tree and
-    compute its cross-attention (float32, 1e-6)."""
+    """mamba and rwkv layers and MoE MLPs (once A11) build the reference's
+    spec tree, stacked and unstacked: the same leaves, shapes, logical
+    axes and inits; a frontend stub and cross-attention, ported with
+    whisper, build the reference's tree and compute its cross-attention
+    (float32, 1e-6)."""
     cfg = tbase.get_config("qwen2_0_5b", smoke=True)
-    for bad in (dict(layer_pattern=("mamba",)), dict(moe=tbase.MoEConfig(
-            n_experts=4, top_k=2, d_expert=32))):
-        with pytest.raises(NotImplementedError, match="A11"):
-            tt.model_spec(cfg.replace(**bad))
+
+    def spec_tree(spec):
+        return {p: (tuple(v.shape), tuple(v.axes), v.init)
+                for p, v in _leaves(spec)}
+
+    for extra in (dict(layer_pattern=("mamba",),
+                       mamba=tbase.MambaConfig(d_state=8)),
+                  dict(moe=tbase.MoEConfig(n_experts=4, top_k=2,
+                                           d_expert=32, d_shared=64)),
+                  dict(layer_pattern=("attn", "mamba"), scan_layers=False,
+                       mamba=tbase.MambaConfig(), moe=tbase.MoEConfig(
+                           n_experts=4, top_k=2, d_expert=32, every=2,
+                           offset=1)),
+                  dict(layer_pattern=("rwkv",), rwkv=tbase.RWKVConfig(
+                      head_size=32, decay_lora=16, mix_lora=8))):
+        jextra = {k: (getattr(jbase, type(v).__name__)(
+            **dataclasses.asdict(v)) if dataclasses.is_dataclass(v) else v)
+            for k, v in extra.items()}
+        jspec = jt.model_spec(jbase.get_config("qwen2_0_5b", smoke=True)
+                              .replace(**jextra))
+        tspec = tt.model_spec(cfg.replace(**extra))
+        assert spec_tree(tspec) == spec_tree(jspec), sorted(extra)
     jc = jbase.get_config("qwen2_0_5b", smoke=True).replace(frontend="x")
     tspec = tt.model_spec(cfg.replace(frontend="x"))
     jspec = jt.model_spec(jc)
