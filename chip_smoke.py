@@ -171,7 +171,35 @@ file; it exits non-zero without either. Phases (each one fails the run):
               78 launches a step counted, generate under fp (the plans' kept
               bfloat16 weights), cim-exact and cim-kernel, B1's time per
               step, one profiled step.
- 14. report   one JSON line listing every kernel of the port and its
+ 14. train    qwen2-0.5b trained at its published widths and depth (24
+              layers, float32 parameters, bfloat16 activations, random
+              weights from torch.Generator seed 0, remat off) under the
+              paper policy on cim-kernel: batch 4 x 128 MarkovLM(seed=0)
+              tokens through ShardedLoader, AdamW at the training CLI's
+              defaults (warm-up max(steps // 20, 1)), 6 steps with
+              checkpoints every 2 under build/chip_smoke/train/, under
+              torch.use_deterministic_algorithms. Every step 168 (p8t,
+              cuda) resolutions and B1 launches (the STE backward is plain
+              products); B1 == plain on the first step's 7 first-layer
+              operands (M = 512), floor and nearest; a run aborted at step
+              4 and resumed in a fresh Trainer == the uninterrupted run
+              (params, m, v and the key, torch.equal); the trained params
+              planned, saved, restored by ServeEngine.restore_planned and
+              served: 8 greedy tokens == the live plan's; ms per step under
+              fp and cim-kernel (host clock) and peak device memory; at 2
+              layers the kernel step == the scan twin's step (loss and
+              parameters); one cim-kernel step under torch.profiler;
+              at 1 layer (float32 activations) the card's
+              loss and gradients against the CPU's under cim-exact (loss
+              1e-5 relative, each gradient within 5e-3 of its largest)
+              and cim-kernel (loss 1e-3, each gradient's cosine >= 0.9:
+              an activation code an ulp from a rounding edge moves on one
+              device, and the ADC makes that a step); B1's time per
+              training step beside its bound; 3 QAT steps of the ResNet
+              checkpoint at batch 256 (AdamW lr 2e-3, warm-up 20, weight
+              decay 1e-4), 14 B1 launches each, losses, parameters and
+              BatchNorm state == the scan twin's.
+ 15. report   one JSON line listing every kernel of the port and its
               launches on each path.
 
 The last line is {"ok": true, "device": {...}}.
@@ -194,6 +222,9 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# Phase 14 runs under torch.use_deterministic_algorithms, whose cuBLAS
+# GEMMs need this set before CUDA starts.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
@@ -237,6 +268,15 @@ QMOE_SCAN_LAYERS = 1
 RWKV_SCAN_LAYERS = 2
 JAMBA_LAYERS = 8  # one pattern unit of 72: 1 attn + 7 mamba, 4 MoE
 JAMBA_EXPERTS = 4  # of 16, top-2: 398B parameters do not fit one card
+# Phase 14: qwen2-0.5b trained at its published widths and depth.
+TR_BATCH, TR_SEQ, TR_STEPS, TR_CKPT_EVERY = 4, 128, 6, 2
+TR_ABORT_AT = 4
+TR_SCAN_LAYERS = 2  # the kernel step against the scan twin's
+TR_CPU_LAYERS = 1  # the card's step against the CPU's
+TR_FP_STEPS = 3
+TR_GEN = 8  # greedy tokens of the train -> serve handoff
+TR_DIR = ROOT / "build" / "chip_smoke" / "train"
+RN_QAT_STEPS = 3
 # Phase 8: benchmarks/pareto.py's full profile (--resnet, not --quick).
 CAL_IMAGES, HELD_OUT = 256, 64
 VARIANTS_ALL = ("p8t", "adder-tree", "cell-adc")
@@ -2388,6 +2428,452 @@ def phase_recurrent(card: str):
     return entries
 
 
+def train_cfg(mode: str, **kw):
+    """qwen2-0.5b's published config for training under ``mode``: float32
+    parameters, bfloat16 activations, no remat (each layer's forward runs
+    once, so a step launches B1 once per projection)."""
+    return lm_cfg(mode, remat="none", **kw)
+
+
+def lm_loader(cfg, device="cuda", start: int = 0):
+    """ShardedLoader over MarkovLM(seed=0) batches of TR_BATCH x TR_SEQ
+    tokens on ``device``, from step ``start``."""
+    import torch
+
+    from repro_torch.data import MarkovLM, ShardedLoader
+
+    lm = MarkovLM(cfg.vocab_size, seed=0)
+
+    def batch_fn(step, shard, n):
+        b = lm.batch(TR_BATCH, TR_SEQ, step, shard=shard, n_shards=n)
+        return {k: torch.from_numpy(v).long().to(device)
+                for k, v in b.items()}
+
+    return ShardedLoader(batch_fn, start_step=start)
+
+
+def lm_step_fn(cfg):
+    """The train step at the training CLI's AdamW defaults for TR_STEPS."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.train import make_train_step
+
+    return make_train_step(
+        lambda p, b, g: transformer.loss_fn(p, b, cfg, generator=g),
+        OptimizerConfig(lr=3e-4, total_steps=TR_STEPS,
+                        warmup_steps=max(TR_STEPS // 20, 1)))
+
+
+def lm_trainer(cfg, params, directory=None, wrap=None):
+    """A Trainer of ``cfg`` from ``params`` (key 0) over ``lm_loader``,
+    checkpointing every TR_CKPT_EVERY steps under ``directory`` (never
+    without one); ``wrap(step_fn)`` wraps the train step."""
+    from repro_torch.train import (Trainer, TrainerConfig, init_train_state,
+                                   make_key)
+
+    step_fn = lm_step_fn(cfg)
+    tcfg = TrainerConfig(checkpoint_dir=str(directory or ""),
+                         checkpoint_every=TR_CKPT_EVERY, log_every=1)
+    return Trainer(wrap(step_fn) if wrap else step_fn,
+                   init_train_state(make_key(0), params), lm_loader(cfg),
+                   tcfg)
+
+
+def trees_equal(a, b) -> bool:
+    import torch
+
+    from repro_torch.optim.adamw import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b), strict=True))
+
+
+def max_tree_diff(a, b) -> float:
+    from repro_torch.optim.adamw import tree_leaves
+
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.checkpoint import store
+
+    return sum(t.numel() * t.element_size()
+               for _, t in store.leaves_with_names(tree))
+
+
+def train_batch(cfg, device="cuda"):
+    """The first training batch (lm_loader's step 0)."""
+    import torch
+
+    from repro_torch.data import MarkovLM
+
+    b = MarkovLM(cfg.vocab_size, seed=0).batch(TR_BATCH, TR_SEQ, 0)
+    return {k: torch.from_numpy(v).long().to(device) for k, v in b.items()}
+
+
+def loss_and_grads(cfg, params, batch):
+    """(loss, gradient tree) of transformer.loss_fn at ``params``."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    p = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = transformer.loss_fn(p, batch, cfg)
+    it = iter(torch.autograd.grad(loss, tree_leaves(p)))
+    return loss.detach(), tree_map(lambda _: next(it), p)
+
+
+def phase_train(card: str):
+    """Phase 14: qwen2-0.5b trained at its published widths and depth
+    through B1, its crash and resume, the train -> serve handoff and QAT
+    steps of the paper's ResNet (see the module docstring). Returns the
+    kernels-line entry."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.checkpoint import store
+    from repro_torch.kernels import cim_mac, dispatch
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import init_train_state, make_key
+
+    t_phase = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    shutil.rmtree(TR_DIR, ignore_errors=True)
+    try:
+        cfg = train_cfg("cim-kernel")
+        check_published(cfg, (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.d_ff, cfg.vocab_size,
+                              cfg.tie_embeddings, cfg.param_dtype,
+                              cfg.activation_dtype),
+                        (24, 896, 14, 2, 4864, 151936, True, "float32",
+                         "bfloat16"))
+        spec = cfg.cim.cim
+        per_step = cfg.n_layers * len(LM_PROJECTIONS)  # 168
+        params = transformer.init(0, cfg, device="cuda")
+
+        # The main run: TR_STEPS steps, checkpoints every TR_CKPT_EVERY;
+        # each step's B1 launches and dispatch resolutions counted (set to
+        # 0 just before the step, read just after it), the first step's
+        # operands captured.
+        counts, ops = [], []
+
+        def counted(step_fn):
+            def run(state, batch):
+                cim_mac.LAUNCHES.clear()
+                cap = (contextlib.nullcontext([]) if counts
+                       else capture_kernel_operands())
+                with dispatch.record_resolutions() as res, cap as got:
+                    out = step_fn(state, batch)
+                    torch.cuda.synchronize()
+                counts.append((collections.Counter(
+                    (r.key.variant, r.key.backend, r.source) for r in res),
+                    cim_mac.LAUNCHES["gpq_matmul"]))
+                ops.extend((f"train {p}", x, w) for p, (_, x, w, _) in zip(
+                    LM_PROJECTIONS, got))
+                return out
+            return run
+
+        tr = lm_trainer(cfg, params, TR_DIR / "a", wrap=counted)
+        t0 = time.perf_counter()
+        hist = tr.run(TR_STEPS)
+        run_s = time.perf_counter() - t0
+        tr.loader.close()
+        launched = sum(n for _, n in counts)
+        for i, (res, n) in enumerate(counts):
+            if res != {("p8t", "cuda", "explicit"): per_step} or \
+                    n != per_step:
+                raise AssertionError(f"[train] step {i}: resolutions "
+                                     f"{dict(res)}, {n} B1 launches; "
+                                     f"want {per_step}")
+        losses = [h["loss"] for h in hist]
+        if len(losses) != TR_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"[train] losses {losses}")
+        if store.latest_step(TR_DIR / "a") != TR_STEPS:
+            raise AssertionError("[train] no checkpoint of the last step")
+        ref = tr.state
+        log(f"[train] {cfg.name} cim-kernel, {cfg.n_layers} layers, batch "
+            f"{TR_BATCH} x {TR_SEQ} MarkovLM tokens, AdamW lr 3e-4 "
+            f"(warm-up {max(TR_STEPS // 20, 1)}), {TR_STEPS} steps, "
+            f"checkpoints every {TR_CKPT_EVERY}: {per_step} explicit (p8t, "
+            f"cuda) resolutions and {per_step} B1 launches in every step "
+            f"({launched} in all; the backward launches none); losses "
+            f"{[round(x, 4) for x in losses]}; host ms per step "
+            f"{[round(h['sec'] * 1e3, 1) for h in hist]} (the checkpoint "
+            f"writer running beside steps {TR_CKPT_EVERY + 1} on); "
+            f"{run_s:.1f} s for the run with its "
+            f"{TR_STEPS // TR_CKPT_EVERY} checkpoints of "
+            f"{_tree_bytes(tr.state) / 1e9:.2f} GB")
+
+        # B1 against its plain version on the first step's operands (the
+        # first layer's 7 projections at M = TR_BATCH * TR_SEQ).
+        for name, x, w in ops:
+            if x.shape[0] != TR_BATCH * TR_SEQ or x.dtype != torch.int32:
+                raise AssertionError(f"{name}: operand {tuple(x.shape)}")
+        max_err = _b1_equal_plain(ops, spec, "train")
+
+        # Crash at step TR_ABORT_AT in a second directory; resume in a
+        # fresh Trainer, its loader restarted at the restored step.
+        tr2 = lm_trainer(cfg, params, TR_DIR / "b")
+        try:
+            tr2.run(TR_STEPS, abort_at=TR_ABORT_AT)
+            raise AssertionError("[train] the run did not abort")
+        except RuntimeError as e:
+            if "simulated failure" not in str(e):
+                raise
+        tr2.loader.close()
+        del tr2
+        shutil.rmtree(TR_DIR / "a")  # disk: the run's state is in memory
+        tr3 = lm_trainer(cfg, params, TR_DIR / "b")
+        at = tr3.maybe_resume()
+        tr3.loader.close()
+        tr3.loader = lm_loader(cfg, start=at)
+        tr3.run(TR_STEPS - at)
+        tr3.loader.close()
+        got, want = tr3.state, ref
+        same = {"params": trees_equal(got.params, want.params),
+                "m": trees_equal(got.opt.m, want.opt.m),
+                "v": trees_equal(got.opt.v, want.opt.v),
+                "key": torch.equal(got.rng, want.rng)}
+        if at != TR_ABORT_AT or tr3.step != TR_STEPS or not all(
+                same.values()):
+            raise AssertionError(f"[train] resumed at {at}, ended at "
+                                 f"{tr3.step}; equal to the uninterrupted "
+                                 f"run: {same}")
+        log(f"[train] crash at step {TR_ABORT_AT}, maybe_resume in a fresh "
+            f"Trainer from its checkpoint, {TR_STEPS - at} more steps: "
+            f"params, opt.m, opt.v and the key == the uninterrupted run's "
+            f"(torch.equal)")
+        del tr3, got
+        shutil.rmtree(TR_DIR / "b")
+
+        # Train -> serve: the live params planned, saved, restored into a
+        # target built from shapes, served; against the live plan.
+        t0 = time.perf_counter()
+        store.save(tr.planned_params(policy=cfg.cim), TR_DIR / "serve",
+                   TR_STEPS)
+        save_s = time.perf_counter() - t0
+        prompts = train_batch(cfg)["tokens"][:, :16]
+        t0 = time.perf_counter()
+        eng = ServeEngine.restore_planned(TR_DIR / "serve", cfg,
+                                          max_len=16 + TR_GEN + 1,
+                                          batch=TR_BATCH)
+        restore_s = time.perf_counter() - t0
+        toks = eng.generate(prompts, TR_GEN)
+        del eng
+        live = ServeEngine(ref.params, cfg, max_len=16 + TR_GEN + 1,
+                           batch=TR_BATCH, plan=True).generate(prompts,
+                                                               TR_GEN)
+        if not np.array_equal(toks, live):
+            raise AssertionError(f"[train] handoff tokens {toks.tolist()} "
+                                 f"!= live-plan tokens {live.tolist()}")
+        log(f"[train] handoff: planned_params -> store.save ({save_s:.1f} "
+            f"s) -> ServeEngine.restore_planned ({restore_s:.1f} s) -> "
+            f"{TR_GEN} greedy tokens == ServeEngine(params, plan=True)'s "
+            f"for each of {TR_BATCH} prompts")
+        shutil.rmtree(TR_DIR / "serve")
+        del tr, ref
+        torch.cuda.empty_cache()
+
+        # Steps per mode on the host clock, no checkpoints.
+        step_ms, mem = {}, {}
+        for mode in ("fp", "cim-kernel"):
+            c = train_cfg(mode)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tr = lm_trainer(c, params)
+            cim_mac.LAUNCHES.clear()
+            h = tr.run(TR_FP_STEPS)
+            torch.cuda.synchronize()
+            mem[mode] = torch.cuda.max_memory_allocated()
+            tr.loader.close()
+            want = per_step * TR_FP_STEPS if mode != "fp" else 0
+            if cim_mac.LAUNCHES["gpq_matmul"] != want:
+                raise AssertionError(f"[train] {mode}: "
+                                     f"{cim_mac.LAUNCHES['gpq_matmul']} B1 "
+                                     f"launches, want {want}")
+            ms = [x["sec"] * 1e3 for x in h]
+            step_ms[mode] = statistics.median(ms[1:])
+            log(f"[train] {mode:10s} {TR_FP_STEPS} steps: host ms "
+                f"{[round(x, 1) for x in ms]} (median after the first "
+                f"{step_ms[mode]:.1f}), peak device memory "
+                f"{mem[mode] / 2**30:.2f} GiB")
+            del tr
+            torch.cuda.empty_cache()
+        step_fn, batch = lm_step_fn(cfg), train_batch(cfg)
+        state = init_train_state(make_key(0), params)
+        step_fn(state, batch)  # warm
+
+        def one_step():
+            with torch.enable_grad():
+                step_fn(state, batch)
+
+        profile_window("train-profile", f"one cim-kernel training step "
+                       f"({cfg.n_layers} layers, batch {TR_BATCH} x "
+                       f"{TR_SEQ})", one_step)
+        del params, state
+
+        # The kernel step against the scan twin's, full width, 2 layers.
+        cfg2 = train_cfg("cim-kernel", n_layers=TR_SCAN_LAYERS)
+        p2 = transformer.init(0, cfg2, device="cuda")
+        batch = train_batch(cfg2)
+        step_k, step_s = lm_step_fn(cfg2), lm_step_fn(scan_twin(cfg2))
+        kern, km = step_k(init_train_state(make_key(0), p2), batch)
+        scan, sm = step_s(init_train_state(make_key(0), p2), batch)
+        diff = max_tree_diff(kern.params, scan.params)
+        if not torch.equal(km["loss"], sm["loss"]) or diff != 0.0:
+            raise AssertionError(f"[train] kernel step != scan twin's: "
+                                 f"loss {km['loss'].item()} vs "
+                                 f"{sm['loss'].item()}, params {diff}")
+        log(f"[train] {TR_SCAN_LAYERS} layers, full width: the cim-kernel "
+            f"step's loss and parameters == the scan twin's (torch.equal; "
+            f"deterministic algorithms)")
+        del p2, kern, scan
+
+        # The card's loss and gradients against the CPU's: 1 layer, full
+        # width, float32 activations. Under cim-exact the two sides part by
+        # the digital ops' rounding. Under cim-kernel a few activation
+        # codes move across a rounding edge (an ulp apart on the two
+        # devices) and the ADC turns that into a step of its transfer, so
+        # a few rows of the forward part wholly: there the limit is on the
+        # loss and on each gradient's direction (cosine).
+        for mode in ("cim-exact", "cim-kernel"):
+            cfg1 = train_cfg(mode, n_layers=TR_CPU_LAYERS,
+                             activation_dtype="float32")
+            p1 = transformer.init(0, cfg1, device="cuda")
+            dl, dg = loss_and_grads(cfg1, p1, train_batch(cfg1))
+            hl, hg = loss_and_grads(cfg1, convert.to_torch(p1, device="cpu"),
+                                    train_batch(cfg1, "cpu"))
+            loss_rel = abs(dl.item() - hl.item()) / abs(hl.item())
+            rel, cos = {}, {}
+            for (name, a), (_, b) in zip(store.leaves_with_names(dg),
+                                         store.leaves_with_names(hg),
+                                         strict=True):
+                a = a.cpu().double().flatten()
+                b = b.double().flatten()
+                rel[name] = ((a - b).abs().max() / b.abs().max()).item()
+                cos[name] = (a @ b / (a.norm() * b.norm())).item()
+            worst = max(rel, key=rel.get)
+            low = min(cos, key=cos.get)
+            lim = (1e-5, 5e-3) if mode == "cim-exact" else (1e-3, None)
+            log(f"[train] card vs CPU, {mode}, {TR_CPU_LAYERS} layer at full "
+                f"width, float32 activations: loss {dl.item():.6f} vs "
+                f"{hl.item():.6f} (relative {loss_rel:.2e}, limit "
+                f"{lim[0]:g}); per leaf, max |dgrad| over the leaf's "
+                f"largest: worst {worst} {rel[worst]:.2e}"
+                + (f" (limit {lim[1]:g})" if lim[1] else "")
+                + f", median {statistics.median(rel.values()):.2e}; cosine "
+                f"of the two gradients: lowest {low} {cos[low]:.6f}"
+                + ("" if lim[1] else " (limit 0.9)"))
+            if loss_rel > lim[0] or (lim[1] and rel[worst] > lim[1]) or (
+                    not lim[1] and cos[low] < 0.9):
+                raise AssertionError(f"[train] card vs CPU, {mode}: beyond "
+                                     "the limits")
+            del p1, dg, hg
+            torch.cuda.empty_cache()
+
+        rn = phase_resnet_qat()
+        t = b1_timings(ops, spec, cfg.n_layers, tag="train-timing")["train"]
+        log(f"[train] B1 per training step ({per_step} launches): "
+            f"{t[4]:.3f} device ms in a graph, bound {t[2]:.3f} ms "
+            f"({t[3]}), against {step_ms['cim-kernel']:.1f} host ms per "
+            f"step (fp {step_ms['fp']:.1f}); {rn}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    log(f"[train] {card}; phase: {time.perf_counter() - t_phase:.1f} s")
+    b1 = KERNELS[0]
+    return {
+        "name": b1.name,
+        "path": f"{LM_ARCH} train step ({cfg.n_layers} layers x "
+                f"{len(LM_PROJECTIONS)}, M = {TR_BATCH * TR_SEQ})",
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{b1.name}.cu",
+        "replaces": b1.replaces,
+        "launches": launched,
+        "max_abs_err": max_err,
+        "ms": t[0],
+        "device_ms": t[4],
+        "plain_ms": t[1],
+        "bound_ms": t[2],
+        "bound_by": t[3],
+        "library_ms": None,
+        "step_ms": step_ms["cim-kernel"],
+        "fp_step_ms": step_ms["fp"],
+        "peak_gib": mem["cim-kernel"] / 2**30,
+    }
+
+
+def phase_resnet_qat() -> str:
+    """Three QAT steps of the paper's ResNet from the committed checkpoint
+    at batch BATCH under the paper policy on cim-kernel, against the same
+    steps through the scan twin. Returns a summary line."""
+    import torch
+
+    from repro_torch.configs import resnet as rcfg
+    from repro_torch.kernels import cim_mac, dispatch
+    from repro_torch.models import resnet
+    from repro_torch.optim import adamw
+
+    # benchmarks/common.py's AdamW settings for this network.
+    opt_cfg = adamw.OptimizerConfig(lr=2e-3, warmup_steps=20,
+                                    total_steps=400, weight_decay=1e-4,
+                                    schedule="cosine")
+    ds = rcfg.dataset()
+
+    def run(policy, counted: bool):
+        cfg = dataclasses.replace(rcfg.RESNET_CFG, cim=policy)
+        params, bn = rcfg.load_baseline(device="cuda")
+        opt = adamw.init_state(params)
+        out = []
+        for s in range(RN_QAT_STEPS):
+            b = ds.batch(BATCH, step=s)
+            batch = {"image": torch.from_numpy(b["image"]).cuda(),
+                     "label": torch.from_numpy(b["label"]).cuda()}
+            p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+            cim_mac.LAUNCHES.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with dispatch.record_resolutions() as res:
+                loss, (bn, met) = resnet.loss_fn(p, bn, batch, cfg,
+                                                 train=True)
+                grads = torch.autograd.grad(loss, adamw.tree_leaves(p))
+            it = iter(grads)
+            params, opt, _ = adamw.apply_updates(
+                params, adamw.tree_map(lambda _: next(it), params), opt,
+                opt_cfg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            n = cim_mac.LAUNCHES["gpq_matmul"]
+            kinds = collections.Counter((r.key.variant, r.key.backend)
+                                        for r in res)
+            if counted and (n != MACRO_CONVS or kinds != {
+                    ("p8t", "cuda"): MACRO_CONVS}):
+                raise AssertionError(f"[resnet-qat] step {s}: {n} B1 "
+                                     f"launches, {dict(kinds)}")
+            out.append((loss.detach(), met["acc"], ms))
+        return params, bn, out
+
+    kp, kbn, kern = run(rcfg.cim_policy(mode="cim-kernel"), True)
+    sp, sbn, scan = run(rcfg.cim_policy(mode="cim"), False)
+    for s, ((kl, ka, ms), (sl, _, _)) in enumerate(zip(kern, scan)):
+        if not torch.equal(kl, sl):
+            raise AssertionError(f"[resnet-qat] step {s}: loss {kl.item()} "
+                                 f"!= scan twin's {sl.item()}")
+        log(f"[resnet-qat] step {s}: loss {kl.item():.4f}, batch accuracy "
+            f"{ka.item():.4f}, {ms:.1f} host ms (cim-kernel, {MACRO_CONVS} "
+            f"B1 launches)")
+    if not (trees_equal(kp, sp) and trees_equal(kbn, sbn)):
+        raise AssertionError(f"[resnet-qat] params after {RN_QAT_STEPS} "
+                             f"steps != scan twin's "
+                             f"({max_tree_diff(kp, sp)})")
+    return (f"ResNet QAT at batch {BATCH}: {RN_QAT_STEPS} steps of "
+            f"{MACRO_CONVS} B1 launches each, losses, params and BatchNorm "
+            f"state == the scan twin's (torch.equal)")
+
+
 def main() -> int:
     import torch
 
@@ -2422,6 +2908,8 @@ def main() -> int:
     del whisper
     torch.cuda.empty_cache()
     fam_entries = phase_moe(card) + phase_recurrent(card)
+    torch.cuda.empty_cache()
+    train_entry = phase_train(card)
 
     report = {"kernels": [{
         "name": kern.name,
@@ -2458,7 +2946,8 @@ def main() -> int:
         "prefill_plain_ms": lm_t["prefill"][1],
         "prefill_bound_ms": lm_t["prefill"][2],
     })
-    report["kernels"] += cal_entries + wh_entries + [vlm_entry] + fam_entries
+    report["kernels"] += (cal_entries + wh_entries + [vlm_entry] + fam_entries
+                          + [train_entry])
     log(json.dumps(report))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,14 +11,20 @@ mirror ``repro`` so each piece has an obvious counterpart:
                KernelKey dispatch table
   configs      execution policy, the LM ModelConfig records and the
                dense archs (qwen2-0.5b, qwen1.5-4b, yi-34b, gemma3-27b)
-  models       ResNet (the paper's Table I network) and the dense LM
-               stack (common layers, GQA attention with full and ring KV
-               caches, transformer prefill/decode) over the engine
+  models       ResNet (the paper's Table I network) and the LM stack
+               (common layers, GQA attention with full and ring KV
+               caches, MoE, RWKV-6, Mamba, transformer forward, loss,
+               prefill and decode) over the engine
   serve        ServeEngine (prefill + greedy decode, weight-stationary
-               plans), ContinuousBatcher, int8 weight-only serving
-  launch       the serving CLI (``python -m repro_torch.launch.serve``)
-  checkpoint   read path of the msgpack + zlib tensor store
-  data         the synthetic CIFAR-shaped dataset and the Markov LM stream
+               plans, restore_planned), ContinuousBatcher, int8
+               weight-only serving
+  optim        AdamW, schedules, clipping, int8 gradient compression
+  train        the train step factory and the fault-tolerant Trainer
+  launch       the serving and training CLIs (``python -m
+               repro_torch.launch.serve`` / ``.train``)
+  checkpoint   the msgpack + zlib tensor store (save, async, restore)
+  data         the synthetic CIFAR-shaped dataset, the Markov LM stream
+               and the sharded prefetch loader
   convert      numpy trees (as the JAX package saves them) -> tensors
 
 The package imports ``torch`` and never ``jax`` or ``repro``. Entry

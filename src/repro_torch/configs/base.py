@@ -68,7 +68,7 @@ class CIMPolicy:
     # backend from `mode` (the mode strings are registered aliases).
     backend: str = ""
     # Straight-through gradients through the macro forward (QAT); read by
-    # the training path (ROADMAP slice 6).
+    # engine.matmul.
     ste: bool = True
     # Which matmul families run through the macro.
     apply_to_attn_proj: bool = True
@@ -123,7 +123,8 @@ class ModelConfig:
     kv_cache_dtype: str = "bfloat16"
     opt_state_dtype: str = "float32"
     grad_accum_dtype: str = "float32"
-    # distribution and training knobs (read by slice 6's trainer).
+    # distribution and training knobs; remat is read by
+    # transformer.forward_train (any value but 'none' recomputes each layer).
     remat: str = "full"  # 'none' | 'dots' | 'full'
     scan_layers: bool = True  # stack identical units under params["units"]
     microbatches: int = 1

@@ -10,8 +10,8 @@ tree, with numpy (or any array-protocol) leaves, into the same nesting
 on a device: same names, same layouts (HWIO filters, [K, N] matrices,
 stacked [U, ...] units), same dtypes (bfloat16 and float8_e4m3fn too),
 with the port's ``PlannedWeights`` and caches in place of the JAX
-package's. The checkpoint reader and the parity tests both go through
-it.
+package's. The parity tests go through it; the checkpoint store shares
+its integer views of bfloat16 and float8_e4m3fn (``VIEW_DTYPES``).
 """
 
 from __future__ import annotations
@@ -22,10 +22,10 @@ from typing import Any
 import numpy as np
 import torch
 
-# numpy extension dtypes (ml_dtypes, as JAX arrays convert to) that
-# torch.from_numpy refuses: carried across bit for bit through an
-# integer view.
-_VIEW_DTYPES = {
+# numpy extension dtypes (ml_dtypes, as JAX arrays convert to, and the
+# checkpoint store's dtype names) that torch.from_numpy refuses: carried
+# across bit for bit through an integer view of the same width.
+VIEW_DTYPES = {
     "bfloat16": (np.uint16, torch.bfloat16),
     "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
 }
@@ -35,8 +35,8 @@ def _tensor(leaf: Any, device) -> torch.Tensor:
     if isinstance(leaf, torch.Tensor):
         return leaf.to(device)
     arr = np.array(leaf, copy=True)  # writable, owned: from_numpy shares it
-    if arr.dtype.name in _VIEW_DTYPES:
-        as_int, dtype = _VIEW_DTYPES[arr.dtype.name]
+    if arr.dtype.name in VIEW_DTYPES:
+        as_int, dtype = VIEW_DTYPES[arr.dtype.name]
         return torch.from_numpy(arr.view(as_int)).view(dtype).to(device)
     return torch.from_numpy(arr).to(device)
 

@@ -29,9 +29,9 @@ backends, so a ``CIMPolicy.mode`` string is a valid backend key.
 ``plan_params`` lifts planning over whole parameter trees (used by
 ``serve.quantized`` and ``serve.engine.ServeEngine``), unifying the CIM
 path and the digital int8 weight-only serving path behind one
-representation. ``matmul`` is the one-shot plan-and-execute forward for
-weights that are not planned ahead; its straight-through (QAT) backward
-comes with training (ROADMAP slice 6).
+representation. ``matmul`` is the one-shot plan-and-execute entry point
+for weights that change every step (QAT): its forward is the planned
+path, its backward the straight-through estimator when ``policy.ste``.
 """
 
 from __future__ import annotations
@@ -79,7 +79,7 @@ class PlannedWeights:
       slots:   [G, rows, S*N] f32 spread-slot planes
                (``quant.spread_slots``); grouping is baked in, so unlike
                ``planes`` this form cannot be regrouped.
-      weight_bits: weight precision.
+      weight_bits: weight precision (structure: not a checkpoint leaf).
     """
 
     codes: Any
@@ -88,7 +88,8 @@ class PlannedWeights:
     w: Any = None
     planes: Any = None
     slots: Any = None
-    weight_bits: int = 8
+    weight_bits: int = dataclasses.field(default=8,
+                                         metadata={"static": True})
 
     @property
     def k(self) -> int:
@@ -406,6 +407,44 @@ def execute(
     return y
 
 
+def _plan_and_execute(x, w, policy, generator):
+    return execute(x, plan_weights(w, policy=policy), policy,
+                   generator=generator)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the JAX package's promoted dtype: a product of mixed
+    dtypes runs in the wider one (torch refuses mixed operands), and a
+    bfloat16 or float16 product sums in float32 and rounds once, as XLA
+    runs it."""
+    out = torch.promote_types(a.dtype, b.dtype)
+    if out in (torch.bfloat16, torch.float16):
+        return (a.float() @ b.float()).to(out)
+    return a.to(out) @ b.to(out)
+
+
+class _MatmulSTE(torch.autograd.Function):
+    """Forward: plan ``w`` and execute ``x`` against it (the macro path;
+    B1 under ``cim-kernel`` on the card). Backward: the straight-through
+    estimator, the underlying linear map: dx = g @ w^T, dw = x^T @ g, as
+    the JAX package's ``_matmul_ste_bwd`` computes them (plain products,
+    no kernel)."""
+
+    @staticmethod
+    def forward(ctx, x, w, policy, generator):
+        ctx.save_for_backward(x, w)
+        return _plan_and_execute(x, w, policy, generator)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1])
+        dx = _dot(g2, w.T).reshape(x.shape).to(x.dtype)
+        dw = _dot(x2.T, g2).to(w.dtype)
+        return dx, dw, None, None
+
+
 def matmul(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -413,18 +452,19 @@ def matmul(
     *,
     generator: torch.Generator | None = None,
 ) -> torch.Tensor:
-    """One-shot plan+execute for weights that are not planned ahead (the
-    forward of the JAX package's ``engine.matmul``). Its straight-through
-    backward is training's (ROADMAP slice 6): a call that autograd would
-    differentiate raises."""
+    """One-shot plan+execute for weights that change every step (QAT).
+
+    The forward runs the full planned path. Its gradient is the
+    straight-through estimator when ``policy.ste`` (the default), else
+    what autograd gives through plan and execute: the integer codes carry
+    none, so only the dequantization scales do (the activation range's
+    min and max, each column's largest |w|).
+    """
     if policy is None or policy.mode == "fp":
-        return x @ w
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "the straight-through backward of engine.matmul comes with "
-            "training, slice 6 of ROADMAP.md; run under torch.no_grad()")
-    plan = plan_weights(w, policy=policy)
-    return execute(x, plan, policy, generator=generator)
+        return _dot(x, w)
+    if getattr(policy, "ste", True):
+        return _MatmulSTE.apply(x, w, policy, generator)
+    return _plan_and_execute(x, w, policy, generator)
 
 
 # ---------------------------------------------------------------------------

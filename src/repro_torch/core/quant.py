@@ -277,3 +277,71 @@ def unslice_weights(planes: torch.Tensor, weight_bits: int) -> torch.Tensor:
         (weight_bits,) + (1,) * (planes.ndim - 1)
     )
     return torch.sum(planes.to(torch.int32) * signs, dim=0).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Straight-through estimators (QAT)
+# ---------------------------------------------------------------------------
+
+
+class _STERound(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _STEClip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo: float, hi: float):
+        ctx.save_for_backward((x >= lo) & (x <= hi))
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inside,) = ctx.saved_tensors
+        return g * inside.to(g.dtype), None, None
+
+
+def ste_round(x: torch.Tensor) -> torch.Tensor:
+    """round(x) forward, identity gradient."""
+    return _STERound.apply(x)
+
+
+def ste_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """clip(x, lo, hi) forward; the gradient passes where lo <= x <= hi."""
+    return _STEClip.apply(x, lo, hi)
+
+
+def fake_quant_acts(
+    x: torch.Tensor, cfg, *, symmetric: bool = False
+) -> torch.Tensor:
+    """Differentiable (STE) activation fake-quant to the DAC grid: the
+    range is a constant of the gradient (``.detach()``)."""
+    qmax = float(cfg.act_max)
+    if symmetric:
+        hi = torch.clamp_min(torch.amax(x).detach(), 1e-8)
+        scale = true_divide(hi, qmax)
+        codes = ste_clip(ste_round(x / scale), 0.0, qmax)
+        return codes * scale
+    hi = torch.amax(x).detach()
+    lo = torch.amin(x).detach()
+    hi = torch.maximum(hi, lo + 1e-8)
+    scale = true_divide(hi - lo, qmax)
+    zp = torch.round(-lo / scale)
+    codes = ste_clip(ste_round(x / scale) + zp, 0.0, qmax)
+    return (codes - zp) * scale
+
+
+def fake_quant_weights(w: torch.Tensor, cfg) -> torch.Tensor:
+    """Differentiable (STE) weight fake-quant to the signed grid, with the
+    range reduced over K only (dim -2), as ``quantize_weights``: QAT trains
+    against the per-[..., 1, N] scales the planned path deploys."""
+    qmax = float((1 << (cfg.weight_bits - 1)) - 1)
+    amax = torch.amax(torch.abs(w), dim=-2, keepdim=True).detach()
+    scale = true_divide(torch.clamp_min(amax, 1e-8), qmax)
+    codes = ste_clip(ste_round(w / scale), -qmax - 1.0, qmax)
+    return codes * scale

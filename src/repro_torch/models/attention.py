@@ -74,12 +74,13 @@ def init_cache(
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def _project_qkv(params, x, cfg: ModelConfig, policy: CIMPolicy | None):
+def _project_qkv(params, x, cfg: ModelConfig, policy: CIMPolicy | None,
+                 generator=None):
     en = policy.apply_to_attn_proj if policy else False
     b, s, _ = x.shape
-    q = common.linear_apply(params["wq"], x, policy, cim_enabled=en)
-    k = common.linear_apply(params["wk"], x, policy, cim_enabled=en)
-    v = common.linear_apply(params["wv"], x, policy, cim_enabled=en)
+    q, k, v = (common.linear_apply(params[n], x, policy, cim_enabled=en,
+                                   generator=generator)
+               for n in ("wq", "wk", "wv"))
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -175,11 +176,11 @@ def causal_mask(s: int, t: int, *, offset: int = 0, window: int = 0,
     return m
 
 
-def _out_proj(params, out, cfg, policy):
+def _out_proj(params, out, cfg, policy, generator=None):
     b, s = out.shape[:2]
     en = policy.apply_to_attn_proj if policy else False
     return common.linear_apply(params["wo"], out.reshape(b, s, cfg.q_dim),
-                               policy, cim_enabled=en)
+                               policy, cim_enabled=en, generator=generator)
 
 
 def attend_full(
@@ -190,15 +191,17 @@ def attend_full(
     positions: torch.Tensor,  # [B, S]
     window: int = 0,
     policy: CIMPolicy | None = None,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
-    """Training / prefill self-attention (no cache)."""
+    """Training / prefill self-attention (no cache); ``generator`` feeds
+    a noisy operating point's projections."""
     s = x.shape[1]
-    q, k, v = _project_qkv(params, x, cfg, policy)
+    q, k, v = _project_qkv(params, x, cfg, policy, generator)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
     out = _self_attention_core(q, k, v, positions=positions[0],
                                window=window, s=s)
-    return _out_proj(params, out, cfg, policy)
+    return _out_proj(params, out, cfg, policy, generator)
 
 
 def prefill_cache(
@@ -276,26 +279,30 @@ def cross_attend(
     cfg: ModelConfig,
     *,
     policy: CIMPolicy | None = None,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """Encoder-decoder cross attention against precomputed memory K/V:
     no RoPE, no mask."""
     b, s, _ = x.shape
     en = policy.apply_to_attn_proj if policy else False
-    q = common.linear_apply(params["wq"], x, policy, cim_enabled=en)
+    q = common.linear_apply(params["wq"], x, policy, cim_enabled=en,
+                            generator=generator)
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k, v = memory_kv
-    return _out_proj(params, _gqa_core(q, k, v, None), cfg, policy)
+    return _out_proj(params, _gqa_core(q, k, v, None), cfg, policy,
+                     generator)
 
 
 def encode_memory_kv(
     params: dict, memory: torch.Tensor, cfg: ModelConfig,
     *, policy: CIMPolicy | None = None,
+    generator: torch.Generator | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V [B, T, KVH, hd] from the encoder output
     [B, T, D]."""
     b, t, _ = memory.shape
     en = policy.apply_to_attn_proj if policy else False
-    k = common.linear_apply(params["wk"], memory, policy, cim_enabled=en)
-    v = common.linear_apply(params["wv"], memory, policy, cim_enabled=en)
+    k, v = (common.linear_apply(params[n], memory, policy, cim_enabled=en,
+                                generator=generator) for n in ("wk", "wv"))
     return (k.reshape(b, t, cfg.n_kv_heads, cfg.head_dim),
             v.reshape(b, t, cfg.n_kv_heads, cfg.head_dim))

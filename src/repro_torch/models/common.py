@@ -109,6 +109,10 @@ def linear_apply(
     """
     w = params["w"]
     plan = w if isinstance(w, PlannedWeights) else None
+    if isinstance(w, dict):  # the older {'w_q', 'w_s'} int8 serving form
+        from repro_torch.serve.quantized import dequantize_weight
+
+        w = dequantize_weight(w, x.dtype)
     if policy is None or policy.mode == "fp" or not cim_enabled:
         wd = plan.best_weights(x.dtype) if plan is not None else w
         y = x @ wd.to(x.dtype)
@@ -179,12 +183,27 @@ def mlp_spec(d: int, d_ff: int, act: str) -> dict:
     }
 
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic`` as XLA runs it: forward ``1 / (1 + exp(-x))``
+    rounded after each op in x's dtype (in bfloat16, ``torch.sigmoid``,
+    rounded once, differs in about a third of the values); gradient
+    ``g * (y * (1 - y))``, the JAX package's rule. Autograd through the
+    forward's ops would give ``inf * 0 = NaN`` where exp(-x) overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``1 / (1 + exp(-x))`` rounded after each op in x's dtype: the JAX
-    package's ``lax.logistic`` as XLA expands it. In bfloat16,
-    ``torch.sigmoid`` (one rounding) differs from it in about a third of
-    the values."""
-    return torch.reciprocal(1 + torch.exp(-x))
+    return _Logistic.apply(x)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -225,16 +244,19 @@ def mlp_apply(
     x: torch.Tensor,
     act: str,
     policy: CIMPolicy | None,
+    *,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     en = policy.apply_to_mlp if policy else False
+    kw = dict(cim_enabled=en, generator=generator)
     if act == "silu":
-        g = linear_apply(params["gate"], x, policy, cim_enabled=en)
-        u = linear_apply(params["up"], x, policy, cim_enabled=en)
+        g = linear_apply(params["gate"], x, policy, **kw)
+        u = linear_apply(params["up"], x, policy, **kw)
         h = silu(g) * u
     else:
-        u = linear_apply(params["up"], x, policy, cim_enabled=en)
+        u = linear_apply(params["up"], x, policy, **kw)
         h = _gelu_tanh(u)  # jax.nn.gelu's default
-    return linear_apply(params["down"], h, policy, cim_enabled=en)
+    return linear_apply(params["down"], h, policy, **kw)
 
 
 # ---------------------------------------------------------------------------

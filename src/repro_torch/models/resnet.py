@@ -15,7 +15,9 @@ Weight-stationary evaluation: ``plan_params(params, policy)`` converts
 every conv/fc weight into its im2col matrix's ``engine.PlannedWeights``
 once. Functional with explicit BatchNorm state:
 
-  forward(params, bn_state, x, cfg) -> (logits, new_bn_state)
+  init(seed, cfg, device=)                -> (params, bn_state)
+  forward(params, bn_state, x, cfg)       -> (logits, new_bn_state)
+  loss_fn(params, bn_state, batch, cfg)   -> (loss, (bn_state, metrics))
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch.configs.base import CIMPolicy
 from repro_torch.core import engine
 from repro_torch.core.engine import PlannedWeights
 from repro_torch.models import common
+from repro_torch.models.common import ParamSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +44,8 @@ class PlannedConv:
     """
 
     plan: PlannedWeights
-    kernel_hw: tuple[int, int]
+    kernel_hw: tuple[int, int] = dataclasses.field(
+        metadata={"static": True})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +57,68 @@ class ResNetConfig:
     cim: CIMPolicy = dataclasses.field(
         default_factory=lambda: CIMPolicy(mode="fp", act_symmetric=True)
     )
+
+
+def _conv_spec(kh, kw, cin, cout):
+    return ParamSpec((kh, kw, cin, cout), (None, None, "embed", "mlp"),
+                     "fanin")
+
+
+def _bn_spec(c):
+    return {
+        "scale": ParamSpec((c,), (None,), "ones"),
+        "bias": ParamSpec((c,), (None,), "zeros"),
+    }
+
+
+def _block_spec(cin, cout):
+    spec = {
+        "conv1": _conv_spec(3, 3, cin, cout),
+        "bn1": _bn_spec(cout),
+        "conv2": _conv_spec(3, 3, cout, cout),
+        "bn2": _bn_spec(cout),
+    }
+    if cin != cout:
+        spec["proj"] = _conv_spec(1, 1, cin, cout)
+        spec["bn_proj"] = _bn_spec(cout)
+    return spec
+
+
+def model_spec(cfg: ResNetConfig) -> dict:
+    w = cfg.widths
+    spec: dict = {"stem": _conv_spec(3, 3, 3, w[0]), "bn_stem": _bn_spec(w[0])}
+    cin = w[0]
+    for si, cout in enumerate(w):
+        for bi in range(cfg.blocks_per_stage):
+            spec[f"s{si}b{bi}"] = _block_spec(cin, cout)
+            cin = cout
+    spec["fc"] = common.linear_spec(w[-1], cfg.n_classes, "embed", "vocab",
+                                    bias=True)
+    return spec
+
+
+def init(seed: int, cfg: ResNetConfig, *, device="cuda"):
+    """(params, bn_state): random parameters at ``cfg``'s widths from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``, BatchNorm
+    running statistics at mean 0, variance 1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = common.init_params(gen, model_spec(cfg))
+    return params, _init_bn_state(params)
+
+
+def _init_bn_state(params):
+    state = {}
+    for k, v in params.items():
+        if k.startswith("bn"):
+            c = v["scale"].shape[0]
+            dev = v["scale"].device
+            state[k] = {"mean": torch.zeros((c,), device=dev),
+                        "var": torch.ones((c,), device=dev)}
+        elif isinstance(v, dict) and not {"w", "b"} >= set(v.keys()):
+            sub = _init_bn_state(v)
+            if sub:
+                state[k] = sub
+    return state
 
 
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -103,7 +169,8 @@ def _conv(params_w, x, stride, policy: CIMPolicy | None,
     """Conv as im2col + (CIM) matmul. x: [B, H, W, C] NHWC.
 
     params_w is either the raw [kh, kw, cin, cout] filter or a
-    PlannedConv over its im2col matrix (see plan_params).
+    PlannedConv over its im2col matrix (see plan_params). A raw filter
+    under a CIM policy runs through ``engine.matmul`` (QAT).
 
     ``tap(name, x2, w)`` observes the im2col activations [M, K] and the
     weight (im2col matrix or PlannedWeights) of every macro-eligible
@@ -134,13 +201,10 @@ def _conv(params_w, x, stride, policy: CIMPolicy | None,
         wmat = _im2col_weight(params_w)
         if want_tap:
             tap(name, x2, wmat)
-        if not digital:
-            raise NotImplementedError(
-                "a CIM policy needs planned weights (plan_params); the "
-                "straight-through path for fresh weights comes with "
-                "training, slice 6 of ROADMAP.md"
-            )
-        y = x2 @ wmat
+        # Fresh weights (training / QAT): planned per call, straight-
+        # through gradients through the im2col matrix and the unfold.
+        y = x2 @ wmat if digital else engine.matmul(x2, wmat, policy,
+                                                    generator=generator)
         cout = wmat.shape[-1]
     return y.reshape(b, ho, wo, cout)
 
@@ -270,3 +334,23 @@ def top1_accuracy(
         pred = torch.argmax(logits, dim=-1)
         correct += int((pred == labels[s:s + bs].to(pred.device)).sum())
     return correct / n
+
+
+def loss_fn(params, bn_state, batch, cfg: ResNetConfig, *, train=True,
+            generator=None):
+    """Cross entropy of ``batch["image"]`` against ``batch["label"]``.
+    Returns (loss, (new BatchNorm state, {"loss", "acc"})); the state and
+    metrics are detached (the JAX package returns them as aux)."""
+    logits, new_state = forward(params, bn_state, batch["image"], cfg,
+                                train=train, generator=generator)
+    labels = batch["label"].long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    loss = -torch.mean(torch.gather(logp, 1, labels[:, None]))
+    acc = torch.mean((torch.argmax(logits, -1) == labels).to(torch.float32))
+    return loss, (_detach(new_state), {"loss": loss.detach(), "acc": acc})
+
+
+def _detach(tree):
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    return tree.detach()

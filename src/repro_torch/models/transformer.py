@@ -15,7 +15,8 @@ package's scan carry is, while a tail layer keeps the state it returns.
 
 Entry points:
   init(seed, cfg, device=)              -> params
-  forward_train(params, batch, cfg)     -> logits, MoE aux (forward only)
+  forward_train(params, batch, cfg)     -> logits, MoE aux
+  loss_fn(params, batch, cfg)           -> scalar loss, metrics
   init_caches / prefill / decode_step   -> the serving path
 The encoder-decoder (whisper) adds ``encode`` and cross-attention in the
 decoder (``memory=`` in prefill and decode_step); the modality frontends
@@ -28,6 +29,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import CIMPolicy, ModelConfig
 from repro_torch.core.engine import PlannedWeights
@@ -125,6 +127,19 @@ def init(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
     return _apply_special_inits(params, cfg)
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """``init``'s tree as meta tensors: its names, shapes and dtypes, no
+    weight drawn (the JAX package's ``jax.eval_shape`` over init)."""
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def meta(spec):
+        if isinstance(spec, ParamSpec):
+            return torch.empty(spec.shape, dtype=dtype, device="meta")
+        return {k: meta(v) for k, v in spec.items()}
+
+    return meta(model_spec(cfg))
+
+
 def _apply_special_inits(params: Params, cfg: ModelConfig) -> Params:
     """S4D-real init of every mamba ``a_log`` leaf, stacked or not:
     log(1..d_state) along the last axis."""
@@ -212,10 +227,11 @@ def _memory_kv(lp, memory, cfg, policy):
 
 
 def _layer(lp, x, cfg: ModelConfig, li: int, *, policy, positions=None,
-           cache=None, pos: int | None = None, mkv=None):
+           cache=None, pos: int | None = None, mkv=None, generator=None):
     """One decoder layer: the full forward (``cache`` None), the prefill
     (a cache, ``pos`` None) or one decode step at ``pos``. Returns (x, the
-    layer's new cache or None, its MoE aux loss or None)."""
+    layer's new cache or None, its MoE aux loss or None). ``generator``
+    feeds a noisy operating point and the router's jitter."""
     kind = cfg.layer_kind(li)
     decode = pos is not None
     h = common.rmsnorm_apply(lp["norm1"], x, cfg.norm_eps)
@@ -223,7 +239,8 @@ def _layer(lp, x, cfg: ModelConfig, li: int, *, policy, positions=None,
         window = _window(cfg, li)
         if cache is None:
             a = attention.attend_full(lp["attn"], h, cfg, positions=positions,
-                                      window=window, policy=policy)
+                                      window=window, policy=policy,
+                                      generator=generator)
         elif not decode:
             a, cache = attention.prefill_cache(
                 lp["attn"], h, cfg, cache, positions=positions,
@@ -233,7 +250,8 @@ def _layer(lp, x, cfg: ModelConfig, li: int, *, policy, positions=None,
                                              window=window, policy=policy)
     elif kind == "mamba":
         if cache is None:
-            a = mamba.mamba_apply(lp["mamba"], h, cfg, policy=policy)
+            a = mamba.mamba_apply(lp["mamba"], h, cfg, policy=policy,
+                                  generator=generator)
         elif not decode:
             a, mc = mamba.mamba_apply(lp["mamba"], h, cfg, policy=policy,
                                       return_cache=True)
@@ -248,7 +266,7 @@ def _layer(lp, x, cfg: ModelConfig, li: int, *, policy, positions=None,
         a, s_tm, state = rwkv.timemix_apply(
             lp["tm"], h, cfg, shift_state=cache.shift_tm if decode else None,
             wkv_state=None if cache is None else cache.state,
-            chunk=1 if decode else 128, policy=policy)
+            chunk=1 if decode else 128, policy=policy, generator=generator)
         if cache is not None:
             cache = cache._replace(shift_tm=s_tm.to(cache.shift_tm.dtype),
                                    state=state.to(cache.state.dtype))
@@ -256,7 +274,7 @@ def _layer(lp, x, cfg: ModelConfig, li: int, *, policy, positions=None,
     if mkv is not None:
         hx = common.rmsnorm_apply(lp["norm_x"], x, cfg.norm_eps)
         x = x + attention.cross_attend(lp["xattn"], hx, mkv, cfg,
-                                       policy=policy)
+                                       policy=policy, generator=generator)
     h = common.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
     aux = None
     if kind == "rwkv":
@@ -264,14 +282,16 @@ def _layer(lp, x, cfg: ModelConfig, li: int, *, policy, positions=None,
             h = h.to(cache.shift_cm.dtype)
         m, s_cm = rwkv.channelmix_apply(
             lp["cm"], h, cfg, shift_state=cache.shift_cm if decode else None,
-            policy=policy)
+            policy=policy, generator=generator)
         if cache is not None:
             cache = cache._replace(shift_cm=s_cm.to(cache.shift_cm.dtype))
     elif "moe" in lp:
-        m, metrics = moe.moe_apply(lp["moe"], h, cfg, policy=policy)
+        m, metrics = moe.moe_apply(lp["moe"], h, cfg, policy=policy,
+                                   generator=generator)
         aux = metrics.aux_loss
     else:
-        m = common.mlp_apply(lp["mlp"], h, cfg.mlp_act, policy)
+        m = common.mlp_apply(lp["mlp"], h, cfg.mlp_act, policy,
+                             generator=generator)
     return x + m.to(x.dtype), cache, aux
 
 
@@ -333,15 +353,34 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
     return common.rmsnorm_apply(params["enc_norm"], x, cfg.norm_eps)
 
 
+def _layer_seeds(generator, cfg: ModelConfig) -> list[int | None]:
+    """One seed per layer, drawn from the step's generator (None without
+    one). A layer builds its generator from its seed each time it runs,
+    so a recomputed (remat) layer draws the same noise."""
+    if generator is None:
+        return [None] * cfg.n_layers
+    seeds = torch.randint(0, 2**62, (cfg.n_layers,), generator=generator,
+                          device=generator.device)
+    return seeds.tolist()
+
+
 def forward_train(
-    params: Params, batch: dict, cfg: ModelConfig
+    params: Params, batch: dict, cfg: ModelConfig, *,
+    generator: torch.Generator | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full forward over ``batch["tokens"]`` [B, S], after
     ``batch["frontend_embeds"]`` [B, F, D] where the config has a frontend
     (the logits then cover F + S positions), with cross-attention to
     ``encode(batch["encoder_frames"])`` in an encoder-decoder; returns
-    (logits, the MoE aux losses summed over layers). Forward only:
-    training is ROADMAP A item 1.3."""
+    (logits, the MoE aux losses summed over layers).
+
+    Differentiable: fresh (unplanned) weights run through
+    ``engine.matmul``, whose backward is the straight-through estimator.
+    ``generator`` (the step's) gives each layer its own generator, as the
+    JAX package folds the layer index into its key; the streams differ
+    from ``jax.random``'s. ``cfg.remat`` other than "none" recomputes each
+    layer in the backward (``torch.utils.checkpoint``, non-reentrant):
+    the same numbers, a forward's launches again."""
     policy = cfg.cim
     x = _embed(params, batch["tokens"], cfg)
     if cfg.frontend and "frontend_embeds" in batch:
@@ -353,12 +392,48 @@ def forward_train(
     if cfg.is_encoder_decoder:
         memory = encode(params, batch["encoder_frames"], cfg, policy)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for li, lp, _ in _layers(params, cfg):
-        x, _, a = _layer(lp, x, cfg, li, policy=policy, positions=positions,
-                         mkv=_memory_kv(lp, memory, cfg, policy))
+    seeds = _layer_seeds(generator, cfg)
+    for (li, lp, path), seed in zip(_layers(params, cfg), seeds, strict=True):
+        mkv = _memory_kv(lp, memory, cfg, policy)
+
+        def one(x, lp=lp, li=li, mkv=mkv, seed=seed):
+            gen = None if seed is None else torch.Generator(
+                device=x.device).manual_seed(seed)
+            y, _, a = _layer(lp, x, cfg, li, policy=policy,
+                             positions=positions, mkv=mkv, generator=gen)
+            return y, a
+
+        if cfg.remat != "none" and torch.is_grad_enabled():
+            x, a = torch.utils.checkpoint.checkpoint(one, x,
+                                                     use_reentrant=False)
+        else:
+            x, a = one(x)
         if a is not None:
             aux = aux + a
     return _logits(params, x, cfg, policy), aux
+
+
+def loss_fn(
+    params: Params, batch: dict, cfg: ModelConfig, *,
+    generator: torch.Generator | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy over the labels >= 0 (a negative label is
+    masked out), in float32, plus the MoE aux loss at its weight; the
+    frontend positions carry no loss. Returns (loss, metrics)."""
+    logits, aux = forward_train(params, batch, cfg, generator=generator)
+    labels = batch["labels"].long()
+    if cfg.frontend and "frontend_embeds" in batch:
+        logits = logits[:, batch["frontend_embeds"].shape[1]:]
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    # A negative label indexes from the end, as jnp.take_along_axis does;
+    # its term is masked.
+    idx = torch.where(labels < 0, labels + logp.shape[-1], labels)
+    nll = -torch.gather(logp, -1, idx[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
+    total = loss + aux_w * aux
+    return total, {"ce_loss": loss, "moe_aux": aux, "tokens": torch.sum(mask)}
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,11 @@ ones (``plan=False`` plans each matmul per call through
 policy planning means digital int8 weight-only serving (the plans drop
 the float weights).
 
-The JAX package's ``donate_plan`` (XLA buffer donation, which PyTorch
-has no counterpart of), ``mesh=`` (tensor-parallel planned trees) and
-``restore_planned`` (a checkpointed planned tree) are not ported; they
-raise and name their ROADMAP.md item.
+``restore_planned`` warm-starts a server from a checkpointed planned
+tree (the train -> serve handoff). The JAX package's ``donate_plan``
+(XLA buffer donation, which PyTorch has no counterpart of) and ``mesh=``
+(tensor-parallel planned trees) are not ported; they raise and name
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -64,11 +65,29 @@ class ServeEngine:
         )
 
     @classmethod
-    def restore_planned(cls, *args, **kwargs) -> "ServeEngine":
-        """Warm-start from a checkpointed planned tree."""
-        raise NotImplementedError(
-            "restore_planned needs the checkpoint write path, slice 6 of "
-            "ROADMAP.md (A11)")
+    def restore_planned(
+        cls, directory, cfg: ModelConfig, *, max_len: int, batch: int,
+        step: int | None = None, calibration=None, device="cuda",
+    ) -> "ServeEngine":
+        """Warm-start a server from a checkpointed planned tree: what
+        ``store.save(plan_params(params, policy=cfg.cim), dir, step)`` or
+        ``Trainer.planned_params`` wrote, in the port or the JAX package.
+
+        The restore target is built from shapes alone (``plan_params``
+        over ``transformer.abstract_params``' meta tensors), so no weight
+        is drawn, quantized or bit-sliced here: the plans come back as
+        the saver wrote them. ``calibration`` must be the saver's (it
+        groups each layer's planes at its calibrated ``rows_active``) and
+        is registered as ``cfg.cim.backend``, as the constructor does.
+        """
+        from repro_torch.checkpoint import store
+
+        target = cim_engine.plan_params(
+            transformer.abstract_params(cfg), policy=cfg.cim,
+            calibration=calibration)
+        planned = store.restore(directory, target, step=step, device=device)
+        return cls(planned, cfg, max_len=max_len, batch=batch, plan=False,
+                   calibration=calibration, device=device)
 
     @torch.no_grad()
     def _prefill(self, prompts: torch.Tensor) -> torch.Tensor:

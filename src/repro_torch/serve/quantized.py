@@ -7,7 +7,8 @@ into the matmul's operand on the fly. Decode is weight-traffic-bound, so
 int8 storage cuts the memory term about 4x against f32. This module is a
 thin serving-flavored wrapper over ``core.engine.plan_params``;
 ``common.linear_apply`` dispatches on the PlannedWeights type.
-Embeddings and norms stay high precision.
+The older ``{'w_q', 'w_s'}`` dict leaves are read too. Embeddings and
+norms stay high precision.
 """
 
 from __future__ import annotations
@@ -20,10 +21,13 @@ from repro_torch.core import engine
 from repro_torch.core.engine import PlannedWeights
 
 
-def dequantize_weight(q: PlannedWeights, dtype) -> torch.Tensor:
-    """Read path for a planned int8 weight (the JAX package's older
-    ``{'w_q', 'w_s'}`` dict form has no counterpart here)."""
-    return q.dequantized(dtype)
+def dequantize_weight(q, dtype) -> torch.Tensor:
+    """Read path for a planned int8 weight, or for the JAX package's
+    older ``{'w_q', 'w_s'}`` dict leaves (codes and per-channel scales,
+    as old checkpoints hold them): ``w_q * w_s`` in ``dtype``."""
+    if isinstance(q, PlannedWeights):
+        return q.dequantized(dtype)
+    return q["w_q"].to(dtype) * q["w_s"].to(dtype)
 
 
 def maybe_dequant(w, dtype) -> torch.Tensor:
@@ -33,6 +37,8 @@ def maybe_dequant(w, dtype) -> torch.Tensor:
     expert banks, mamba's x_proj and dt_proj)."""
     if isinstance(w, PlannedWeights):
         return w.best_weights(dtype)
+    if isinstance(w, dict):
+        return dequantize_weight(w, dtype)
     return w.to(dtype)
 
 

@@ -277,8 +277,14 @@ def test_narrow_resnet_cim_kernel_matches_pallas_reference():
 
 
 def test_unplanned_cim_conv_raises_naming_the_slice(checkpoint):
+    """An unplanned (fresh-weight) CIM conv raised before training was
+    ported, hence the name. It now plans per call through engine.matmul
+    (the QAT path) and gives the planned forward's logits bit for bit."""
     pol = tcfg.cim_policy(mode="cim")
     c = dataclasses.replace(tcfg.RESNET_CFG, cim=pol)
-    x = torch.from_numpy(checkpoint["batch"]["image"][:1])
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tresnet.forward(checkpoint["tparams"], checkpoint["tbn"], x, c)
+    x = torch.from_numpy(checkpoint["batch"]["image"][:2])
+    fresh, _ = tresnet.forward(checkpoint["tparams"], checkpoint["tbn"], x, c)
+    planned, _ = tresnet.forward(
+        tresnet.plan_params(checkpoint["tparams"], pol), checkpoint["tbn"],
+        x, c)
+    assert torch.equal(fresh, planned)

@@ -125,8 +125,10 @@ def test_continuous_batcher_schedule_equals_reference(params, mode):
 @pytest.mark.parametrize("mode", ["cim-exact", "cim", "cim-kernel"])
 def test_one_shot_matmul_bit_exact_and_no_backward(mode):
     """engine.matmul (plan per call, then execute) equals the reference's
-    forward bit for bit in float32; asking autograd for its backward
-    raises (the straight-through backward is slice 6's)."""
+    forward bit for bit in float32. (Before training was ported its
+    backward raised, hence the name.) Its backward is now the reference's
+    straight-through one: the gradients equal jax.grad's to float32
+    rounding, and a call under no_grad runs the same forward."""
     jpol = JPolicy(mode="cim" if mode == "cim-kernel" else mode, cim=JOP)
     tpol = TPolicy(mode=mode, cim=TOP)
     rng = np.random.default_rng(2)
@@ -135,11 +137,18 @@ def test_one_shot_matmul_bit_exact_and_no_backward(mode):
     want = jengine.matmul(jnp.asarray(x), jnp.asarray(w), jpol)
     got = tengine.matmul(torch.from_numpy(x), torch.from_numpy(w), tpol)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    g = rng.standard_normal((3, 5, 40)).astype(np.float32)
+    jgw = jax.grad(lambda w_: jnp.vdot(jnp.asarray(g), jengine.matmul(
+        jnp.asarray(x), w_, jpol)))(jnp.asarray(w))
     wt = torch.from_numpy(w).requires_grad_()
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tengine.matmul(torch.from_numpy(x), wt, tpol)
+    y = tengine.matmul(torch.from_numpy(x), wt, tpol)
+    (tgw,) = torch.autograd.grad(y, wt, torch.from_numpy(g))
+    np.testing.assert_allclose(tgw.numpy(), np.asarray(jgw), rtol=1e-5,
+                               atol=1e-5)
     with torch.no_grad():
-        tengine.matmul(torch.from_numpy(x), wt, tpol)
+        np.testing.assert_array_equal(
+            tengine.matmul(torch.from_numpy(x), wt, tpol).numpy(),
+            got.numpy())
 
 
 def test_int8_serving_plans_bit_exact(params):
@@ -224,8 +233,11 @@ def test_serve_engine_unported_options_raise(params):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tserve.ServeEngine(params[1], tc, max_len=8, batch=1,
                                device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tserve.ServeEngine.restore_planned("x", tc, max_len=8, batch=1)
+    # restore_planned is ported (tests/test_torch_checkpoint.py): a
+    # directory without a checkpoint raises as the store's restore does
+    with pytest.raises(FileNotFoundError, match="LATEST"):
+        tserve.ServeEngine.restore_planned("x", tc, max_len=8, batch=1,
+                                           device="cpu")
     eng = tserve.ServeEngine(params[1], tc, max_len=8, batch=2, device="cpu")
     with pytest.raises(ValueError, match="batch"):
         eng.generate(torch.zeros((3, 2), dtype=torch.long), 2)
