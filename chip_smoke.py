@@ -199,7 +199,30 @@ file; it exits non-zero without either. Phases (each one fails the run):
               checkpoint at batch 256 (AdamW lr 2e-3, warm-up 20, weight
               decay 1e-4), 14 B1 launches each, losses, parameters and
               BatchNorm state == the scan twin's.
- 15. report   one JSON line listing every kernel of the port and its
+ 15. sweep    the sweep harness (python -m repro_torch.sweep) over the
+              committed studies in configs/sweeps/, everything under
+              build/chip_smoke/sweeps/: a --dry-run process for each of
+              the five configs (every point feasible); accuracy_study.json
+              as committed (Fig. 7b: rows 4/8/16 x ADC bits 3/4/5, noisy,
+              128 images) twice, 9 points ok, every resolution (scan,
+              noise), the two logs byte-identical; its noiseless copy (the
+              noisy axis false): 14 (p8t, cuda, heuristic) resolutions and
+              B1 launches per forward at every point, each point's logits
+              == the scan twin's (torch.equal), and the log of
+              --max-points 4 then a resume, and of --jobs 2 (spawned
+              workers), each bytes equal to the uninterrupted run's;
+              resnet_study.json as committed (calibrate, refine, pareto
+              under noisy evaluations on the scan transfer) and its
+              noiseless copy (params.noisy false: every evaluation through
+              the variants' kernels, (variant, cuda, heuristic) only, each
+              of B1-B3 launched), each a 9-point pareto report with its
+              frontier; the autotune measure over autotune_cpu.json's 54
+              points on the card (the card's arch label): every winner a
+              registered backend, the rendered cache loads with
+              TuningCache.from_json and, active, dispatch resolves "tuned"
+              at all 54. Seconds per study, top-1 per point, and each
+              kernel's time over one evaluation of its path (== plain).
+ 16. report   one JSON line listing every kernel of the port and its
               launches on each path.
 
 The last line is {"ok": true, "device": {...}}.
@@ -282,6 +305,10 @@ CAL_IMAGES, HELD_OUT = 256, 64
 VARIANTS_ALL = ("p8t", "adder-tree", "cell-adc")
 CAL_GRID = dict(adc_bits=(3, 4, 5), rows_active=(8, 16), coarse_bits=(1,),
                 variants=VARIANTS_ALL, vdd=(0.6, 0.9, 1.2))
+# Phase 15: the sweep harness over the committed study configs.
+SWEEP_CONFIGS = ROOT / "configs" / "sweeps"
+SWEEP_DIR = ROOT / "build" / "chip_smoke" / "sweeps"
+SW_IMAGES = 128  # images per point of the noiseless accuracy copy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -969,11 +996,10 @@ def lm_cfg(mode: str, arch: str = LM_ARCH, smoke: bool = False, **kw):
     return cfg.replace(**kw)
 
 
-def scan_twin(cfg):
-    """``cfg`` with every macro matmul through the scan twin: on a CUDA
-    device the heuristic sends plans without unpacked planes (stacked LM
-    plans have none) to B1, so the scan is requested explicitly, through
-    an engine backend registered here."""
+def register_scan_twin() -> str:
+    """The engine backend "scan-twin": every macro matmul through the scan
+    twin, requested explicitly (on a CUDA device the heuristic sends plans
+    without unpacked planes to the kernels)."""
     from repro_torch.core import engine
     from repro_torch.kernels import dispatch
 
@@ -981,8 +1007,14 @@ def scan_twin(cfg):
         engine.register_backend("scan-twin", engine.quantized_backend(
             lambda x, plan, spec, gen: dispatch.dispatch(
                 x, plan.codes, spec, backend="scan", planes=plan.planes)))
-    return cfg.replace(cim=dataclasses.replace(cfg.cim, mode="cim",
-                                               backend="scan-twin"))
+    return "scan-twin"
+
+
+def scan_twin(cfg):
+    """``cfg`` with every macro matmul through the scan twin (stacked LM
+    plans have no unpacked planes, so the heuristic would take B1)."""
+    return cfg.replace(cim=dataclasses.replace(
+        cfg.cim, mode="cim", backend=register_scan_twin()))
 
 
 def _tree_numel(tree) -> int:
@@ -1331,9 +1363,10 @@ def lm_profile(planned, cfg, prompts):
 
 
 @contextlib.contextmanager
-def capture_kernel_operands():
+def capture_kernel_operands(last: int | None = None):
     """Every (kernel, x codes, w codes, spec) the three kernel wrappers
-    get through ``kernels.ops`` (dispatch's route to them)."""
+    get through ``kernels.ops`` (dispatch's route to them); with ``last``,
+    only each kernel's last ``last``."""
     from repro_torch.kernels import ops
 
     names = {"gpq_matmul": "cim_matmul_kernel",
@@ -1345,6 +1378,9 @@ def capture_kernel_operands():
     def wrap(kname):
         def rec(x, w, spec, **kw):
             got.append((kname, x, w, spec))
+            mine = [i for i, g in enumerate(got) if g[0] == kname]
+            if last is not None and len(mine) > last:
+                del got[mine[0]]
             return real[kname](x, w, spec, **kw)
         return rec
 
@@ -2874,6 +2910,361 @@ def phase_resnet_qat() -> str:
             f"state == the scan twin's (torch.equal)")
 
 
+@contextlib.contextmanager
+def counted_measure(name: str):
+    """Per grid point of measure ``name`` run in this process: the kernel
+    launches (the counts set to 0 just before the point, read just after)
+    and the dispatch resolutions, keyed by the point's index."""
+    from repro_torch.kernels import cim_mac, dispatch
+    from repro_torch.sweep import measures
+
+    orig = measures.resolve(name)
+    per_point = {}
+
+    def fn(config, point):
+        cim_mac.LAUNCHES.clear()
+        with dispatch.record_resolutions() as res:
+            rec = orig.fn(config, point)
+        per_point[point.index] = (
+            collections.Counter(cim_mac.LAUNCHES),
+            collections.Counter((r.key.variant, r.key.backend, r.source)
+                                for r in res))
+        return rec
+
+    measures.register(name, fn, validate=orig.validate)
+    try:
+        yield per_point
+    finally:
+        measures.register(name, orig.fn, validate=orig.validate)
+
+
+def sweep_config(name: str, out: str, *, axes=None, params=None,
+                 rename=None):
+    """The committed study ``configs/sweeps/<name>.json`` writing under
+    SWEEP_DIR/``out``, with ``axes``/``params`` entries replaced and the
+    sweep renamed where given (a copy is another study: a new hash)."""
+    from repro_torch.sweep.config import SweepConfig, load_config
+
+    d = load_config(SWEEP_CONFIGS / f"{name}.json").to_dict()
+    if DEVICE != "cuda":  # a CPU rehearsal
+        params = {**(params or {}), "device": DEVICE}
+    d["axes"] = {**d["axes"], **(axes or {})}
+    d["params"] = {**d["params"], **(params or {})}
+    d["name"] = rename or d["name"]
+    d["out_dir"] = str(SWEEP_DIR / out)
+    return SweepConfig.from_dict(d)
+
+
+def write_config(cfg) -> pathlib.Path:
+    d = cfg.to_dict()
+    d.pop("out_dir", None)
+    path = SWEEP_DIR / "configs" / f"{cfg.name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(d, indent=1))
+    return path
+
+
+def sweep_cli(*argvs, timeout: int = 600) -> list[str]:
+    """``python -m repro_torch.sweep`` once per argv, all started
+    together, with an empty tuning-cache directory (dispatch on its
+    heuristics); each must exit 0. Their standard outputs, in order."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "REPRO_TORCH_AUTOTUNE_DIR": str(SWEEP_DIR / "no-tuning-cache")}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.sweep", *map(str, a)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for a in argvs]
+    outs = []
+    try:
+        for a, proc in zip(argvs, procs):
+            out, err = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"python -m repro_torch.sweep {' '.join(map(str, a))}: "
+                    f"exit {proc.returncode}\n{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def point_lines(cfg, fmt) -> list[str]:
+    from repro_torch.sweep import runner
+
+    return [fmt(r) for r in sorted(runner.read_points(cfg).values(),
+                                   key=lambda r: r["index"])]
+
+
+def sweep_entry(kern, ops, launches: int, path: str, **extra) -> dict:
+    """A kernels-line entry from one evaluation's operands of ``kern``:
+    wrapper == plain on each, and the summed times and bound."""
+    err = 0.0
+    for _, x, w, spec in ops:
+        e = (kern.wrapper()(x, w, spec)
+             - kern.plain()(x, w, spec)).abs().max().item()
+        if e:
+            raise AssertionError(f"{kern.name} != plain on a sweep operand "
+                                 f"(max |err| {e})")
+    per = [launch_timing(kern, x, w, spec, f"conv {i}", "sweep-timing")
+           for i, (_, x, w, spec) in enumerate(ops)]
+    tot = [sum(t[i] for t in per) for i in range(4)]
+    bound_by = ("bytes" if sum(t[4] for t in per) * 2 >= len(per)
+                else "operations")
+    log(f"[sweep] {kern.name} on {path}: {launches} launches; one "
+        f"evaluation's {len(per)}: {tot[0]:.4f} ms over wrapper calls "
+        f"({tot[3]:.4f} device ms), plain {tot[1]:.4f} ms, bound "
+        f"{tot[2]:.4f} ms ({bound_by})")
+    return {
+        "name": kern.name, "path": path, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{kern.name}.cu",
+        "replaces": kern.replaces, "launches": launches,
+        "max_abs_err": err, "ms": tot[0], "device_ms": tot[3],
+        "plain_ms": tot[1], "bound_ms": tot[2], "bound_by": bound_by,
+        "library_ms": None, **extra,
+    }
+
+
+def phase_sweep(card: str):
+    """Phase 15: the sweep harness over the committed studies (see the
+    module docstring). Returns the kernels-line entries of its paths."""
+    import torch
+
+    from repro_torch.configs import resnet as rcfg
+    from repro_torch.core import calibrate
+    from repro_torch.core.pipeline import MacroSpec
+    from repro_torch.kernels import autotune, cim_mac, dispatch
+    from repro_torch.models import resnet
+    from repro_torch.sweep import analysis, plan, report, runner
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)
+    SWEEP_DIR.mkdir(parents=True)
+    secs = {}
+
+    def quiet(_line):
+        pass
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[what] = secs.get(what, 0.0) + time.perf_counter() - t0
+        return out
+
+    # Dry runs of the five committed configs, one process each.
+    names = sorted(p.stem for p in SWEEP_CONFIGS.glob("*.json"))
+    outs = timed("dry runs", lambda: sweep_cli(*[
+        [SWEEP_CONFIGS / f"{n}.json", "--dry-run", "--out",
+         SWEEP_DIR / "dry" / n] for n in names]))
+    for n, out in zip(names, outs):
+        lines = out.splitlines()
+        m = re.search(r"(\d+) grid points, (\d+) feasible", lines[0])
+        ok = sum(line.startswith("  ok ") for line in lines[1:])
+        if not m or not int(m.group(1)) == int(m.group(2)) == ok > 0:
+            raise AssertionError(f"dry run of {n}: {out[:2000]}")
+        log(f"[sweep] dry run {n}.json: {lines[0].split(': ', 1)[1]}")
+
+    # accuracy_study.json as committed (noisy, on the scan transfer), twice.
+    logs = []
+    for run in ("a", "b"):
+        cfg = sweep_config("accuracy_study", f"accuracy_study_{run}")
+        n_points = len(plan.expand(cfg))
+        with dispatch.record_resolutions() as res:
+            rep = timed("accuracy_study", lambda: runner.run(cfg, log=quiet))
+        kinds = collections.Counter((r.key.backend, r.source) for r in res)
+        if not rep.finalized or rep.n_ok != n_points or set(kinds) != {
+                ("scan", "noise")}:
+            raise AssertionError(f"accuracy_study: {rep}, {dict(kinds)}")
+        logs.append(cfg.points_path.read_bytes())
+    if logs[0] != logs[1]:
+        raise AssertionError("accuracy_study: two runs' logs differ")
+    log(f"[sweep] {card}: accuracy_study.json as committed (noisy, "
+        f"{cfg.params['n_images']} images): {n_points} ok, "
+        f"{sum(kinds.values())} resolutions a run, all (scan, noise); "
+        f"two runs byte-identical; top-1 per point: " + "; ".join(
+            point_lines(cfg, lambda r: f"rows {r['point']['rows_active']} "
+                        f"adc {r['point']['adc_bits']} "
+                        f"{r['result']['accuracy']:.4f}")))
+
+    # Its noiseless copy: B1 at every point, == the scan twin.
+    quiet_cfg = sweep_config(
+        "accuracy_study", "accuracy_noiseless", axes={"noisy": [False]},
+        params={"n_images": SW_IMAGES}, rename="accuracy_study_noiseless")
+    forwards = SW_IMAGES // 64
+    with counted_measure("cim-accuracy") as per_point, \
+            capture_kernel_operands(last=MACRO_CONVS) as acc_ops:
+        rep = timed("accuracy_study noiseless",
+                    lambda: runner.run(quiet_cfg, log=quiet))
+    acc_launches = 0
+    for idx, (launched, kinds) in sorted(per_point.items()):
+        want = MACRO_CONVS * forwards
+        if (launched != collections.Counter({"gpq_matmul": want})
+                or sum(kinds.values()) != want
+                or not set(kinds) <= {("p8t", "cuda", "heuristic"),
+                                      ("p8t", "cuda", "tuned")}):
+            raise AssertionError(f"noiseless point {idx}: launches "
+                                 f"{dict(launched)}, {dict(kinds)}")
+        acc_launches += launched["gpq_matmul"]
+    if not rep.finalized or rep.n_ok != n_points:
+        raise AssertionError(f"noiseless accuracy study: {rep}")
+    params, bn = rcfg.load_baseline(device=DEVICE)
+    b = rcfg.dataset().batch(64, step=0, train=False)
+    img = torch.from_numpy(b["image"]).to(DEVICE)
+    twin = register_scan_twin()
+    for pt in plan.expand(quiet_cfg):
+        v = pt.values
+        pol = rcfg.cim_policy(rows=v["rows_active"], adc_bits=v["adc_bits"],
+                              cutoff=v["cutoff"], noisy=False)
+        planned = resnet.plan_params(params, dataclasses.replace(
+            pol, mode=calibrate._plan_mode(img.device)))
+        with torch.no_grad():
+            kern, _ = resnet.forward(planned, bn, img, dataclasses.replace(
+                rcfg.RESNET_CFG, cim=pol))
+            scan, _ = resnet.forward(planned, bn, img, dataclasses.replace(
+                rcfg.RESNET_CFG, cim=dataclasses.replace(pol, backend=twin)))
+        if not torch.equal(kern, scan):
+            raise AssertionError(f"noiseless {v}: kernel logits != the scan "
+                                 f"twin's ({(kern - scan).abs().max()})")
+    log(f"[sweep] {card}: accuracy_study noiseless copy ({SW_IMAGES} "
+        f"images): {n_points} ok, {MACRO_CONVS} (p8t, cuda, heuristic) resolutions and B1 launches "
+        f"per forward at every point ({acc_launches} launches); each "
+        f"point's logits == the scan twin's (torch.equal, 64 images); "
+        f"top-1 per point: " + "; ".join(point_lines(
+            quiet_cfg, lambda r: f"rows {r['point']['rows_active']} adc "
+            f"{r['point']['adc_bits']} {r['result']['accuracy']:.4f}")))
+    cfg_path = write_config(quiet_cfg)
+    resumed, jobs2 = SWEEP_DIR / "cli_resumed", SWEEP_DIR / "cli_jobs2"
+    half = n_points // 2
+    first, _ = timed("accuracy_study CLI", lambda: sweep_cli(
+        [cfg_path, "--out", resumed, "--max-points", half],
+        [cfg_path, "--out", jobs2, "--jobs", "2"]))
+    (rest,) = timed("accuracy_study CLI",
+                    lambda: sweep_cli([cfg_path, "--out", resumed]))
+    want = quiet_cfg.points_path.read_bytes()
+    if (f"{half} ok, 0 skipped, 0 prior" not in first
+            or f"resume: {half}/{n_points}" not in rest):
+        raise AssertionError(f"--max-points {half} / resume: {first} {rest}")
+    for label, d in ((f"--max-points {half} + resume", resumed),
+                     ("--jobs 2", jobs2)):
+        if (d / "points.jsonl").read_bytes() != want:
+            raise AssertionError(f"{label}: log != the uninterrupted run's")
+    log(f"[sweep] CLI: --max-points {half} then a resume, and --jobs 2 "
+        "(spawned workers), each finalize bytes equal to the in-process "
+        "run's")
+
+    # resnet_study.json as committed (noisy evaluations), then noiseless.
+    def pareto_report(c, rep, label):
+        payload = report.load_report(analysis.analyze(c)[0])
+        n = len(plan.expand(c))
+        if (not rep.finalized or rep.n_ok != n or len(payload["points"]) != n
+                or not any(p["frontier"] for p in payload["points"])
+                or payload["config_hash"] != c.config_hash):
+            raise AssertionError(f"resnet_study {label}: {rep}, {payload}")
+        log(f"[sweep] {card}: resnet_study ({label}): {n} ok; pareto "
+            "report: " + "; ".join(f"{p['variant']} {p['vdd']:.1f} V "
+                        f"{p['tops_per_w']:.3f} TOPS/W top-1 "
+                        f"{p['accuracy']:.4f}{' *' if p['frontier'] else ''}"
+                        for p in payload["points"]))
+
+    cfg = sweep_config("resnet_study", "resnet_study")
+    with dispatch.record_resolutions() as res:
+        rep = timed("resnet_study", lambda: runner.run(cfg, log=quiet))
+    noisy_kinds = collections.Counter((r.key.backend, r.source) for r in res)
+    if set(noisy_kinds) - {("scan", "noise")}:
+        raise AssertionError(f"noisy resnet_study: {dict(noisy_kinds)}")
+    pareto_report(cfg, rep, "as committed, noisy evaluations")
+    rn_cfg = sweep_config("resnet_study", "resnet_noiseless",
+                          params={"noisy": False},
+                          rename="resnet_study_noiseless")
+    cim_mac.LAUNCHES.clear()
+    with dispatch.record_resolutions() as res, \
+            capture_kernel_operands(last=MACRO_CONVS) as rn_ops:
+        rep = timed("resnet_study noiseless",
+                    lambda: runner.run(rn_cfg, log=quiet))
+    rn_launches = {k.name: cim_mac.LAUNCHES[k.name] for k in KERNELS}
+    kinds = collections.Counter((r.key.variant, r.key.backend, r.source)
+                                for r in res)
+    if any(k[1:] != ("cuda", "heuristic") for k in kinds) or not all(
+            rn_launches.values()):
+        raise AssertionError(f"noiseless resnet_study: {dict(kinds)}, "
+                             f"launches {rn_launches}")
+    pareto_report(rn_cfg, rep, "noiseless copy")
+    log(f"[sweep] resnet_study resolutions: as committed "
+        f"{dict(noisy_kinds)}; noiseless copy {dict(kinds)}, launches "
+        f"{rn_launches}")
+
+    # The autotune measure over autotune_cpu.json's grid, on the card.
+    arch = autotune.device_arch(DEVICE)
+    tcfg = sweep_config("autotune_cpu", "autotune",
+                        params={"arch": arch, "device": DEVICE},
+                        rename=f"autotune_{arch}")
+    env_before = os.environ.get("REPRO_TORCH_AUTOTUNE_DIR")
+    os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = str(SWEEP_DIR / "tuning")
+    try:
+        cim_mac.LAUNCHES.clear()
+        rep = timed("autotune", lambda: runner.run(tcfg, log=quiet))
+        at_launches = {k.name: cim_mac.LAUNCHES[k.name] for k in KERNELS}
+        recs = sorted(runner.read_points(tcfg).values(),
+                      key=lambda r: r["index"])
+        bad = [r for r in recs if r["status"] != "ok" or r["result"][
+            "backend"] not in dispatch.backends_for(r["result"]["variant"])]
+        if not rep.finalized or len(recs) != len(plan.expand(tcfg)) or bad \
+                or not all(
+                at_launches.values()):
+            raise AssertionError(f"autotune: {rep}, {bad[:3]}, launches "
+                                 f"{at_launches}")
+        (path,) = analysis.analyze(tcfg)
+        cache = autotune.TuningCache.from_json(json.loads(path.read_text()))
+        autotune.set_active(cache)
+        spec = MacroSpec()
+        sources = collections.Counter()
+        for r in recs:
+            res_ = r["result"]
+            x, w, planes, slots = autotune.sweep_operands(
+                spec, *res_["shape"], device=DEVICE)
+            with dispatch.record_resolutions() as lr:
+                dispatch.dispatch(x, w, spec, variant=res_["variant"],
+                                  planes=planes, slots=slots)
+            sources[lr[-1].source] += 1
+        if set(sources) != {"tuned"}:
+            raise AssertionError(f"under the rendered cache: {sources}")
+    finally:
+        autotune.clear_active()
+        if env_before is None:
+            os.environ.pop("REPRO_TORCH_AUTOTUNE_DIR", None)
+        else:
+            os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = env_before
+    won = collections.Counter(
+        (r["result"]["backend"], tuple(r["result"]["block"] or ()))
+        for r in recs)
+    log(f"[sweep] autotune ({arch}, autotune_cpu.json's {len(recs)} "
+        f"points): every winner a registered backend, {dict(won)}; "
+        f"{path.name} loads with TuningCache.from_json and, active, "
+        f"dispatch resolves 'tuned' at all {len(recs)}; launches "
+        f"{at_launches}")
+
+    entries = [sweep_entry(
+        KERNELS[0], [o for o in acc_ops if o[0] == KERNELS[0].name],
+        acc_launches,
+        f"accuracy_study noiseless copy: {n_points} points x {forwards} "
+        f"forwards of "
+        f"64 images ({MACRO_CONVS} launches per forward)")]
+    n_held = rn_cfg.params.get("n_held", 16)
+    for kern in KERNELS:
+        entries.append(sweep_entry(
+            kern, [o for o in rn_ops if o[0] == kern.name],
+            rn_launches[kern.name],
+            f"resnet_study noiseless copy: calibrate + refine + pareto evals "
+            f"({n_held} held-out images, {MACRO_CONVS} launches per eval)",
+            autotune_launches=at_launches[kern.name]))
+    log(f"[sweep] {card}; seconds per study: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in secs.items()))
+    log(f"[sweep] phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -2910,6 +3301,8 @@ def main() -> int:
     fam_entries = phase_moe(card) + phase_recurrent(card)
     torch.cuda.empty_cache()
     train_entry = phase_train(card)
+    torch.cuda.empty_cache()
+    sweep_entries = phase_sweep(card)
 
     report = {"kernels": [{
         "name": kern.name,
@@ -2947,7 +3340,7 @@ def main() -> int:
         "prefill_bound_ms": lm_t["prefill"][2],
     })
     report["kernels"] += (cal_entries + wh_entries + [vlm_entry] + fam_entries
-                          + [train_entry])
+                          + [train_entry] + sweep_entries)
     log(json.dumps(report))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,10 @@
-"""checkpoint of the PyTorch port (see the package docstring)."""
+"""Checkpoint substrate: the msgpack + zlib tensor store, async saves."""
+
+from repro_torch.checkpoint.store import (
+    AsyncCheckpointer,
+    latest_step,
+    restore,
+    save,
+)
+
+__all__ = ["AsyncCheckpointer", "latest_step", "restore", "save"]

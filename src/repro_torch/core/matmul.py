@@ -10,15 +10,24 @@ Semantics per output element, with K tiled into groups of
 transfer: a Python loop over the G groups, with peak memory one
 [M, B*N] group tile. It runs on any device and is the behavioral
 backend's default outside the hand kernel.
+
+The module also keeps the DEPRECATED one-shot ``cim_matmul`` and
+``cim_matmul_ste`` shims of the reference over ``core.engine.matmul``;
+new code plans once (``engine.plan_weights``) and executes per batch
+(``engine.execute``).
 """
 
 from __future__ import annotations
+
+from typing import Literal
 
 import torch
 
 from repro_torch.core import adc as adc_lib
 from repro_torch.core import quant
 from repro_torch.core.params import CIMConfig
+
+CIMMode = Literal["fp", "cim-exact", "cim", "cim-kernel"]
 
 
 def _pad_k_to_groups(k: int, rows: int) -> int:
@@ -113,3 +122,69 @@ def cim_matmul_exact_int(
     return (x_codes.to(torch.float64) @ w_codes.to(torch.float64)).to(
         torch.float32
     )
+
+
+def _policy_for(cfg, mode, act_symmetric, act_clip_pct, ste=True):
+    from repro_torch.configs.base import CIMPolicy  # lazy: no import cycle
+
+    return CIMPolicy(
+        mode=mode,
+        cim=cfg,
+        act_symmetric=act_symmetric,
+        act_clip_pct=act_clip_pct,
+        ste=ste,
+    )
+
+
+def cim_matmul_ste(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    cfg: CIMConfig,
+    mode: CIMMode,
+    generator: torch.Generator | None = None,
+    act_symmetric: bool = False,
+    act_clip_pct: float = 1.0,
+) -> torch.Tensor:
+    """CIM matmul with straight-through gradients (QAT).
+
+    Deprecated alias kept for the reference's callers; the STE one-shot
+    path is ``core.engine.matmul``. ``generator`` takes the place of the
+    reference's PRNG ``key``.
+    """
+    from repro_torch.core import engine  # lazy: engine imports this module
+
+    policy = _policy_for(cfg, mode, act_symmetric, act_clip_pct, ste=True)
+    return engine.matmul(x, w, policy, generator=generator)
+
+
+def cim_matmul(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    cfg: CIMConfig | None = None,
+    *,
+    mode: CIMMode = "fp",
+    generator: torch.Generator | None = None,
+    act_symmetric: bool = False,
+    act_clip_pct: float = 1.0,
+    ste: bool = True,
+) -> torch.Tensor:
+    """One-shot CIM matmul. DEPRECATED shim over core.engine.
+
+    Equal to plan-then-execute in every mode; new code uses the
+    weight-stationary API::
+
+        plan = engine.plan_weights(w, policy.cim, policy)
+        y = engine.execute(x, plan, policy)
+
+    or ``engine.matmul(x, w, policy)`` for per-step (QAT) weights.
+    mode='fp' is a plain matmul; the other modes run the macro model,
+    with straight-through gradients when ``ste``.
+    """
+    if mode == "fp":
+        return x @ w
+    if cfg is None:
+        raise ValueError("CIM modes require a CIMConfig")
+    from repro_torch.core import engine  # lazy: engine imports this module
+
+    policy = _policy_for(cfg, mode, act_symmetric, act_clip_pct, ste=ste)
+    return engine.matmul(x, w, policy, generator=generator)

@@ -152,6 +152,10 @@ def quantize_acts(
     return QuantizedActs(codes, scale, zp)
 
 
+def dequantize_acts(q: QuantizedActs) -> torch.Tensor:
+    return q.scale * (q.codes - q.zero_point).to(q.scale.dtype)
+
+
 def quantize_weights(
     w: torch.Tensor,
     weight_bits: int,
@@ -174,6 +178,10 @@ def quantize_weights(
         torch.int32
     )
     return QuantizedWeights(codes, scale)
+
+
+def dequantize_weights(q: QuantizedWeights) -> torch.Tensor:
+    return q.scale * q.codes.to(q.scale.dtype)
 
 
 def bitslice_weights(

@@ -486,9 +486,12 @@ CELL_ADC = _CellADCVariant(
 _VARIANTS: dict[str, MacroVariant] = {}
 
 
-def register(variant: MacroVariant) -> None:
-    if variant.name in _VARIANTS:
-        raise ValueError(f"macro variant '{variant.name}' already registered")
+def register(variant: MacroVariant, *, overwrite: bool = False) -> None:
+    if variant.name in _VARIANTS and not overwrite:
+        raise ValueError(
+            f"macro variant '{variant.name}' already registered "
+            "(overwrite=True to replace)"
+        )
     _VARIANTS[variant.name] = variant
 
 
@@ -513,3 +516,10 @@ def get_pipeline(name: str) -> AnalogPipeline:
 
 for _v in (P8T, ADDER_TREE, CELL_ADC):
     register(_v)
+
+
+# Package-level aliases (core/__init__ re-exports these; the short
+# names stay natural for `from repro_torch.core import variants` users).
+get_variant = get
+variant_names = names
+register_variant = register

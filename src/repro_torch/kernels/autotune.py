@@ -404,6 +404,10 @@ def sweep_operands(
     return x, w, planes, slots
 
 
+class NoFeasibleCandidate(RuntimeError):
+    """Every candidate of a sweep was infeasible at its shape."""
+
+
 def sweep_shape(
     variant: str,
     spec: CIMConfig | MacroSpec | None,
@@ -457,7 +461,7 @@ def sweep_shape(
         if best is None or secs * 1e6 < best.us:
             best = Winner(backend=backend, block=block, us=secs * 1e6)
     if best is None:
-        raise RuntimeError(
+        raise NoFeasibleCandidate(
             f"no feasible kernel candidate for variant='{variant}' at "
             f"shape ({m}, {k}, {n})"
         )
