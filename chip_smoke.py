@@ -222,7 +222,32 @@ file; it exits non-zero without either. Phases (each one fails the run):
               TuningCache.from_json and, active, dispatch resolves "tuned"
               at all 54. Seconds per study, top-1 per point, and each
               kernel's time over one evaluation of its path (== plain).
- 16. report   one JSON line listing every kernel of the port and its
+ 16. shard    the sharding rules and the launch dry run: qwen2-0.5b at its
+              published widths and depth served by ServeEngine(plan=True,
+              mesh=make_host_mesh((1, 1))) on the card (an NCCL group of
+              one) under cim-kernel at the paper point, phase 7's prompts
+              (batch 4, 128 tokens, 32 new): tokens == a mesh-free engine's
+              on the same weights, every planned tensor a DTensor placed as
+              planned_param_shardings gives, each local shard the whole
+              tensor on the card (the one the engine computes on), 168 B1
+              launches and (p8t, cuda) resolutions in the prefill and in
+              each decode step, each counted, B1 == plain on a step's
+              operands; run_cell on meta for every
+              (arch, shape) of shape_cells over the 10 archs (single mesh,
+              no probe; spawned processes, the seconds printed): every
+              status ok, n_params and model_flops == validate_cell's; the
+              FLOPs probe of one dense and one MoE cell; qwen2-0.5b's
+              decode_32k cell (batch 128, cache 32768, position 32767)
+              built by build_decode_step on tensors of the card (weights
+              from a seed, caches zeroed, cim-kernel, the plan made once)
+              and run once: the dry run's argument_bytes at the (1, 1) mesh
+              == the device memory the materialised arguments take (the
+              allocator's requested bytes) exactly, peak device memory
+              printed, 168 B1 launches at M = 128, logits == the
+              scan twin's (torch.equal); a batch that does not fit is
+              halved, and the cut printed. B1's time per decode step on
+              both paths beside its bound.
+ 17. report   one JSON line listing every kernel of the port and its
               launches on each path.
 
 The last line is {"ok": true, "device": {...}}.
@@ -309,6 +334,10 @@ CAL_GRID = dict(adc_bits=(3, 4, 5), rows_active=(8, 16), coarse_bits=(1,),
 SWEEP_CONFIGS = ROOT / "configs" / "sweeps"
 SWEEP_DIR = ROOT / "build" / "chip_smoke" / "sweeps"
 SW_IMAGES = 128  # images per point of the noiseless accuracy copy
+# Phase 16: serving with a mesh, the dry run's cells, one cell for real.
+SH_CELL = "decode_32k"  # qwen2-0.5b's cell built on the card's tensors
+SH_PROBES = (("qwen2_0_5b", "prefill_32k"), ("granite_moe_1b", "train_4k"))
+SH_WORKERS = 8  # processes for the dry run's cells (meta, CPU only)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -3265,6 +3294,279 @@ def phase_sweep(card: str):
     return entries
 
 
+def _dryrun_worker_init():
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _dryrun_cells() -> list[tuple[str, str]]:
+    """Every (arch, shape) of the dry run, the slowest first: RWKV's
+    per-step WKV loop on meta takes most of the time."""
+    from repro_torch.configs.base import ARCH_IDS, shape_cells
+
+    cells = [(a, s) for a in ARCH_IDS for s in shape_cells(a)]
+    return sorted(cells, key=lambda c: (not c[0].startswith("rwkv"),
+                                        c[1] != "prefill_32k"))
+
+
+def _requested_bytes() -> int:
+    """Bytes the caching allocator holds for live tensors on the card, as
+    the tensors asked for them (before its rounding to 512 B blocks)."""
+    import torch
+
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def _check_like_specs(real_args, meta_args):
+    """Each materialised argument has the name, shape and dtype of the dry
+    run's meta argument, and lies on the card."""
+    from repro_torch import pytree
+
+    got = pytree.leaves_with_names(real_args)
+    want = pytree.leaves_with_names(meta_args)
+    if [(n, tuple(t.shape), t.dtype) for n, t in got] != [
+            (n, tuple(t.shape), t.dtype) for n, t in want]:
+        raise AssertionError("materialised arguments != the dry run's specs")
+    if any(t.device.type != DEVICE for _, t in got):
+        raise AssertionError("a materialised argument is not on the card")
+
+
+def phase_shard(card: str):
+    """Phase 16: ServeEngine(mesh=) on the card, the dry run of every cell,
+    and qwen2-0.5b's decode_32k cell built for real (see the module
+    docstring). Returns the kernels-line entries of B1 on its paths."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+    import torch
+    import torch.distributed
+
+    from repro_torch import pytree
+    from repro_torch.configs.base import SHAPES, ShapeConfig, get_config
+    from repro_torch.core import engine
+    from repro_torch.data.synthetic import MarkovLM
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import cim_mac, dispatch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    kern = KERNELS[0]
+    cfg_k = lm_cfg("cim-kernel")
+    spec = cfg_k.cim.cim
+    per_step = cfg_k.n_layers * len(LM_PROJECTIONS)
+
+    # (a) ServeEngine(mesh=) against the mesh-free engine, same weights.
+    params = transformer.init(0, cfg_k, device="cuda")
+    prompts = torch.from_numpy(MarkovLM(cfg_k.vocab_size, seed=0).sample(
+        LM_BATCH, LM_PROMPT - 1, seed=0)).long().cuda()
+    mesh = make_host_mesh((1, 1))
+    kw = dict(max_len=LM_PROMPT + LM_GEN + 1, batch=LM_BATCH, plan=True)
+    free = ServeEngine(params, cfg_k, **kw)
+    want, free_ms = host_ms(lambda: free.generate(prompts, LM_GEN))
+    del free
+    eng = ServeEngine(params, cfg_k, mesh=mesh, **kw)
+    del params
+    shardings = sharding.planned_param_shardings(eng.params, mesh)
+    placed = pytree.leaves(eng.placed)
+    local = pytree.leaves(eng.params)
+    want_sh = pytree.leaves(shardings, is_leaf=sharding.is_sharding)
+    if not (len(placed) == len(local) == len(want_sh)):
+        raise AssertionError(f"{len(placed)} placed tensors, {len(local)} "
+                             f"local, {len(want_sh)} shardings")
+    for d, t, sh in zip(placed, local, want_sh):
+        if (tuple(d.placements) != sh.placements() or t.shape != d.shape
+                or t.device.type != DEVICE
+                or d.to_local().data_ptr() != t.data_ptr()):
+            raise AssertionError(f"placement {d.placements} (want "
+                                 f"{sh.placements()}), local {t.shape} on "
+                                 f"{t.device}, global {d.shape}")
+    calls = []  # (step, B1 launches, resolutions): prefill, each decode
+
+    def counted(step, fn):
+        def run(*args):
+            cim_mac.LAUNCHES.clear()
+            with dispatch.record_resolutions() as res:
+                out = fn(*args)
+            calls.append((step, cim_mac.LAUNCHES[kern.name],
+                          collections.Counter((r.key.variant, r.key.backend)
+                                              for r in res)))
+            return out
+        return run
+
+    prefill, decode = eng._prefill, eng._decode_step
+    eng._prefill = counted("prefill", prefill)
+    eng._decode_step = counted("decode", decode)
+    cim_mac.LAUNCHES.clear()
+    got, mesh_ms = host_ms(lambda: eng.generate(prompts, LM_GEN))
+    eng._prefill, eng._decode_step = prefill, decode
+    gen_launches = sum(n for _, n, _ in calls)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"mesh tokens {got.tolist()} != mesh-free "
+                             f"tokens {want.tolist()}")
+    bad = [(i, step, n, dict(r)) for i, (step, n, r) in enumerate(calls)
+           if n != per_step or r != {("p8t", "cuda"): per_step}]
+    if [step for step, _, _ in calls] != (
+            ["prefill"] + ["decode"] * (LM_GEN - 1)) or bad:
+        raise AssertionError(f"{len(calls)} counted steps; off: {bad[:3]}")
+    with torch.no_grad(), capture_kernel_operands() as dec:
+        eng._decode_step(torch.from_numpy(got[:, -1]).cuda(),
+                         LM_PROMPT + LM_GEN - 1)
+    mesh_ops = [(f"decode {p}", x, w) for p, (_, x, w, _) in zip(
+        LM_PROJECTIONS, dec)]
+    mesh_err = _b1_equal_plain(mesh_ops, spec, "shard")
+    log(f"[shard] {card}: ServeEngine(mesh=make_host_mesh((1, 1))) "
+        f"{cfg_k.name} cim-kernel, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+        f"{LM_GEN} tokens == the mesh-free engine's; {len(placed)} planned "
+        f"tensors placed as planned_param_shardings gives (DTensor, NCCL "
+        f"group of one), each local shard the whole tensor on the card; "
+        f"{per_step} B1 launches and (p8t, cuda) resolutions in the "
+        f"prefill and each of {len(calls) - 1} decode steps ({gen_launches} "
+        f"in all); generate {mesh_ms:.2f} ms with the mesh (steps "
+        f"counted), {free_ms:.2f} ms without (host clock)")
+    mesh_t = b1_timings(mesh_ops, spec, cfg_k.n_layers, tag="shard-timing")
+    del eng, dec, mesh_ops
+    torch.cuda.empty_cache()
+
+    # (b) The dry run: every (arch, shape) on meta, single mesh, no probe.
+    cells = _dryrun_cells()
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=min(SH_WORKERS, os.cpu_count() or 1),
+            mp_context=ctx, initializer=_dryrun_worker_init) as pool:
+        futs = [pool.submit(dryrun.run_cell, a, sh, multi_pod=False,
+                            do_probe=False) for a, sh in cells]
+        recs = [f.result() for f in futs]
+    dry_s = time.perf_counter() - t0
+    for (a, sh), rec in zip(cells, recs):
+        v = dryrun.validate_cell(a, sh)
+        if rec["status"] != "ok" or any(rec[k] != v[k] for k in v):
+            raise AssertionError(f"dry run {a} {sh}: {rec.get('error')} "
+                                 f"{rec.get('traceback', '')[-1500:]}")
+    log(f"[shard] dry run: {len(recs)} cells of {len(set(a for a, _ in cells))}"
+        f" archs on meta (single 16x16 mesh, no probe), every status ok, "
+        f"n_params and model_flops == validate_cell's; {dry_s:.1f} s over "
+        f"{min(SH_WORKERS, os.cpu_count() or 1)} processes")
+    for (a, sh), rec in zip(cells, recs):
+        m = rec["memory"]
+        log(f"[shard]   {a:16s} {sh:12s} args {m['argument_bytes'] / 2**30:8.3f}"
+            f" GiB out {m['output_bytes'] / 2**30:8.3f} GiB per device; "
+            f"flops/device {rec['cost']['flops_per_device']:.4e}; "
+            f"{rec['wall_s']} s")
+    for a, sh in SH_PROBES:
+        t0 = time.perf_counter()
+        cfg = get_config(a)
+        probe = dryrun.flops_probe(cfg, SHAPES[sh], SHAPES[sh].kind)
+        mf = dryrun.model_flops(cfg, SHAPES[sh])
+        if not probe["hlo_flops_total"] > 0:
+            raise AssertionError(f"probe {a} {sh}: {probe}")
+        log(f"[shard] probe {a} {sh}: {probe}; model_flops {mf:.4e} "
+            f"(probe / model {probe['hlo_flops_total'] / mf:.4f}); "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    # (c) qwen2-0.5b's decode_32k cell built on real tensors of the card.
+    shape = SHAPES[SH_CELL]
+    batch = shape.global_batch
+    twin = scan_twin(cfg_k)
+    while True:
+        cell = ShapeConfig(shape.name, shape.seq_len, batch, shape.kind)
+        fn, meta_args, in_sh, _, _ = dryrun.build_decode_step(
+            cfg_k, cell, mesh)
+        want_bytes = dryrun.per_device_bytes(meta_args, in_sh)
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = (_requested_bytes(), torch.cuda.memory_allocated())
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            real = (transformer.init(0, cfg_k, device="cuda"),
+                    torch.randint(0, cfg_k.vocab_size, (batch,),
+                                  generator=gen, device="cuda",
+                                  dtype=torch.int32),
+                    torch.tensor(cell.seq_len - 1, dtype=torch.int32,
+                                 device="cuda"),
+                    transformer.init_caches(cfg_k, batch, cell.seq_len,
+                                            dtype=torch.bfloat16,
+                                            device="cuda"))
+            got_bytes = _requested_bytes() - before[0]
+            held = torch.cuda.memory_allocated() - before[1]
+            _check_like_specs(real, meta_args)
+            planned = engine.plan_params(real[0], policy=cfg_k.cim)
+            cim_mac.LAUNCHES.clear()
+            with capture_kernel_operands() as ops:
+                (logits, _), step_ms = host_ms(
+                    lambda: fn(planned, *real[1:]))
+            launched = cim_mac.LAUNCHES[kern.name]
+            peak = torch.cuda.max_memory_allocated()
+            fn_twin = dryrun.build_decode_step(twin, cell, None)[0]
+            twin_logits, _ = fn_twin(planned, *real[1:])
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"[shard] decode_32k at batch {batch} does not fit: "
+                f"{str(e).splitlines()[0]}")
+            real = planned = None
+            if batch == 1:
+                raise
+            batch //= 2
+    if batch != shape.global_batch:
+        log(f"[shard] CUT: decode_32k runs at batch {batch} of "
+            f"{shape.global_batch} (device memory)")
+    if got_bytes != want_bytes:
+        raise AssertionError(f"dry-run argument_bytes {want_bytes} != the "
+                             f"{got_bytes} B of device memory the "
+                             f"materialised arguments hold")
+    ops = [(f"decode {p}", x, w) for p, (_, x, w, _) in zip(LM_PROJECTIONS,
+                                                          ops)]
+    if launched != per_step or {x.shape[0] for _, x, _ in ops} != {batch}:
+        raise AssertionError(f"{launched} B1 launches in the cell's step "
+                             f"(want {per_step} at M = {batch})")
+    if not (torch.equal(logits, twin_logits)
+            and torch.isfinite(logits).all()):
+        d = (logits.float() - twin_logits.float()).abs().max().item()
+        raise AssertionError(f"decode_32k: cim-kernel logits != scan twin's "
+                             f"({d})")
+    cell_err = _b1_equal_plain(ops, spec, "shard")
+    log(f"[shard] {card}: {cfg_k.name} {SH_CELL} cell built by "
+        f"build_decode_step on the card (batch {batch}, cache "
+        f"{cell.seq_len}, position {cell.seq_len - 1}, cim-kernel, the plan "
+        f"made once): dry-run argument_bytes at the (1, 1) mesh {want_bytes} "
+        f"== the device memory the materialised arguments hold, {got_bytes} "
+        f"B (the allocator's requested bytes; {held} B in the blocks it "
+        f"allocated); peak device memory "
+        f"{peak} B ({peak / 2**30:.2f} GiB); {launched} B1 launches at M = "
+        f"{batch}; logits == the scan twin's (torch.equal); step "
+        f"{step_ms:.2f} ms (host clock)")
+    cell_t = b1_timings(ops, spec, cfg_k.n_layers, tag="shard-timing")
+    del real, planned, ops, logits, twin_logits, mesh
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()  # make_host_mesh's group
+    log(f"[shard] phase: {time.perf_counter() - t_phase:.1f} s")
+
+    def entry(path, launches, err, t, **extra):
+        ms, plain_ms, bound, bound_by, device_ms = t["decode"]
+        return {
+            "name": kern.name, "path": path, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{kern.name}.cu",
+            "replaces": kern.replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, **extra,
+        }
+
+    return [
+        entry(f"ServeEngine(mesh=) {LM_ARCH} generate, batch {LM_BATCH}: "
+              f"prefill + {LM_GEN - 1} decode steps (times per decode step, "
+              f"{per_step} launches)", gen_launches, mesh_err, mesh_t),
+        entry(f"{LM_ARCH} {SH_CELL} cell step (batch {batch}, cache "
+              f"{shape.seq_len}; times per step)", launched, cell_err,
+              cell_t, peak_bytes=peak, argument_bytes=got_bytes),
+    ]
+
+
 def main() -> int:
     import torch
 
@@ -3303,6 +3605,8 @@ def main() -> int:
     train_entry = phase_train(card)
     torch.cuda.empty_cache()
     sweep_entries = phase_sweep(card)
+    torch.cuda.empty_cache()
+    shard_entries = phase_shard(card)
 
     report = {"kernels": [{
         "name": kern.name,
@@ -3340,7 +3644,7 @@ def main() -> int:
         "prefill_bound_ms": lm_t["prefill"][2],
     })
     report["kernels"] += (cal_entries + wh_entries + [vlm_entry] + fam_entries
-                          + [train_entry] + sweep_entries)
+                          + [train_entry] + sweep_entries + shard_entries)
     log(json.dumps(report))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,8 +21,14 @@ mirror ``repro`` so each piece has an obvious counterpart:
   optim        AdamW, schedules, clipping, int8 gradient compression
   train        the train step factory and the fault-tolerant Trainer
   launch       the serving and training CLIs (``python -m
-               repro_torch.launch.serve`` / ``.train``)
+               repro_torch.launch.serve`` / ``.train``), the meshes and
+               the dry run (``python -m repro_torch.launch.dryrun``)
   checkpoint   the msgpack + zlib tensor store (save, async, restore)
+  distributed  the logical-axis sharding rules, ``shard_planned`` and the
+               activation constraints
+  sweep        the study harness (``python -m repro_torch.sweep``)
+  pytree       the walker of the port's trees, in the JAX package's
+               flattening order and leaf names
   data         the synthetic CIFAR-shaped dataset, the Markov LM stream
                and the sharded prefetch loader
   convert      numpy trees (as the JAX package saves them) -> tensors

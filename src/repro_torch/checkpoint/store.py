@@ -8,17 +8,22 @@ Layout, the JAX package's:
   <dir>/step_<n>/data.bin.zst       concatenated tensor payloads
   <dir>/LATEST                      atomic pointer (text, step number)
 
-The port needs neither ``msgpack``, ``zstandard`` nor ``ml_dtypes``:
-manifests are written and read by a small msgpack codec covering what
-they hold (maps, arrays, str, bin, ints, floats, bools, nil), payloads
-are zlib streams of stored blocks (tagged "zlib" in the manifest, which
-the JAX package reads), and bfloat16 / float8_e4m3fn tensors travel as the bits of their integer
-view. A zstd-tagged payload raises a clear error.
+The port needs neither ``msgpack`` nor ``ml_dtypes``: manifests are
+written and read by a small msgpack codec covering what they hold (maps,
+arrays, str, bin, ints, floats, bools, nil), payloads are zlib streams of
+stored blocks (tagged "zlib" in the manifest, which the JAX package
+reads), and bfloat16 / float8_e4m3fn tensors travel as the bits of their
+integer view. ``zstandard`` is optional, as in the JAX package, whose
+``save`` writes zstd wherever it imports: a zstd-tagged payload is read
+when it imports and raises a clear error when it does not (the CUDA
+machine of chip_smoke.py has no ``zstandard``). The writer writes zlib
+either way.
 
-Tensor names are the JAX package's leaf paths: dict keys, NamedTuple
-and dataclass fields, sequence indices, joined by "/"; ``None`` and the
-dataclass fields marked ``metadata={"static": True}`` (a plan's
-``weight_bits``, a conv's ``kernel_hw``) are structure, not leaves.
+Tensor names are the JAX package's leaf paths (``repro_torch.pytree``):
+dict keys, NamedTuple and dataclass fields, sequence indices, joined by
+"/"; ``None`` and the dataclass fields marked
+``metadata={"static": True}`` (a plan's ``weight_bits``, a conv's
+``kernel_hw``) are structure, not leaves.
 Python scalars are leaves (saved as ``np.asarray`` saves them). So a
 checkpoint of a port tree restores into the same tree of the JAX package
 and back.
@@ -31,21 +36,25 @@ restore point.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 import pathlib
 import shutil
 import struct
 import threading
 import zlib
-from typing import Any, Callable
+from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.convert import VIEW_DTYPES
+from repro_torch.pytree import SEP, leaves_with_names, map_with_names
 
-_KEY_SEP = "/"
+try:  # optional: reads the JAX package's default (zstd) payloads
+    import zstandard
+except ImportError:
+    zstandard = None
+
 _COMPRESSION = "zlib"
 # Stored deflate blocks (level 0): float32 weights shrink by only about 7%
 # at zlib level 3, which writes about 17 MB/s on one CPU core; stored
@@ -204,69 +213,6 @@ def packb(obj: Any) -> bytes:
 
 
 # ---------------------------------------------------------------------------
-# Tree paths
-# ---------------------------------------------------------------------------
-
-
-def _is_namedtuple(node) -> bool:
-    return isinstance(node, tuple) and hasattr(node, "_fields")
-
-
-def _data_fields(node) -> list[str]:
-    return [f.name for f in dataclasses.fields(node)
-            if not f.metadata.get("static")]
-
-
-def _children(node) -> list[tuple[str, Any]] | None:
-    """(path part, child) of a container in the JAX package's flattening
-    order (dict keys sorted), or None for a leaf."""
-    if isinstance(node, dict):
-        return [(str(k), node[k]) for k in sorted(node)]
-    if _is_namedtuple(node):
-        return list(zip(node._fields, node))
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        return [(f, getattr(node, f)) for f in _data_fields(node)]
-    if isinstance(node, (list, tuple)):
-        return [(str(i), v) for i, v in enumerate(node)]
-    return None
-
-
-def leaves_with_names(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
-    """(name, leaf) of every leaf, in the JAX package's order and names."""
-    if tree is None:
-        return []
-    kids = _children(tree)
-    if kids is None:
-        return [(prefix, tree)]
-    out = []
-    for part, child in kids:
-        out += leaves_with_names(
-            child, f"{prefix}{_KEY_SEP}{part}" if prefix else part)
-    return out
-
-
-def map_with_names(fn: Callable[[str, Any], Any], tree: Any,
-                   prefix: str = "") -> Any:
-    """The tree with each leaf replaced by ``fn(name, leaf)``; containers
-    keep their types (and a dataclass its static fields)."""
-    if tree is None:
-        return None
-    kids = _children(tree)
-    if kids is None:
-        return fn(prefix, tree)
-    mapped = {part: map_with_names(
-        fn, child, f"{prefix}{_KEY_SEP}{part}" if prefix else part)
-        for part, child in kids}
-    if isinstance(tree, dict):
-        return {k: mapped[str(k)] for k in tree}
-    if _is_namedtuple(tree):
-        return type(tree)(*(mapped[f] for f in tree._fields))
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **mapped)
-    return type(tree)(mapped[str(i)] for i in range(len(tree)))
-
-
-# ---------------------------------------------------------------------------
 # Write path
 # ---------------------------------------------------------------------------
 
@@ -371,11 +317,18 @@ class AsyncCheckpointer:
 
 
 def _decompress(blob: bytes, compression: str, max_output_size: int):
+    """The payload, bounded by the manifest's declared size (a corrupt or
+    tampered payload fails instead of allocating without bound)."""
     if compression == "zstd":
-        raise ValueError(
-            "checkpoint payload is zstd-compressed; this reader takes zlib "
-            "payloads only (re-write the checkpoint with the zlib codec)"
-        )
+        if zstandard is None:
+            raise ModuleNotFoundError(
+                "checkpoint payload is zstd-compressed but the optional "
+                "'zstandard' package is not installed (re-write the "
+                "checkpoint with the zlib codec, or read it where "
+                "zstandard imports)"
+            )
+        dctx = zstandard.ZstdDecompressor()
+        return dctx.decompress(blob, max_output_size=max_output_size)
     if compression == "zlib":
         d = zlib.decompressobj()
         out = d.decompress(blob, max_output_size)
@@ -453,7 +406,7 @@ def restore(
         tree: dict[str, Any] = {}
         dev = "cuda" if device is None else device
         for name, t in tensors.items():
-            *path, leaf = name.split(_KEY_SEP)
+            *path, leaf = name.split(SEP)
             node = tree
             for p in path:
                 node = node.setdefault(p, {})

@@ -285,12 +285,10 @@ def shape_cells(arch_id: str) -> list[str]:
 
 
 def get_config(arch_id: str, *, smoke: bool = False) -> ModelConfig:
-    """CONFIG (or SMOKE) of one ported arch."""
+    """CONFIG (or SMOKE) of one arch, or of the paper's ResNet-20
+    ("resnet20_cifar", a ``models.resnet.ResNetConfig``)."""
     arch_id = arch_id.replace("-", "_").replace(".", "_")
-    if arch_id == "resnet20_cifar":
-        raise KeyError("the ResNet's configuration is "
-                       "repro_torch.configs.resnet")
-    if arch_id not in ARCH_IDS:
+    if arch_id not in ARCH_IDS and arch_id != "resnet20_cifar":
         raise KeyError(f"unknown arch '{arch_id}'; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.SMOKE if smoke else mod.CONFIG

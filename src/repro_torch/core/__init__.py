@@ -1,7 +1,7 @@
 """Core: the paper's P-8T SRAM CIM macro, weight-stationary, in PyTorch.
 
 The package-level API of the JAX package's ``repro.core`` (its
-``__all__`` but ``planned_axes``, which comes with the sharding rules):
+``__all__``):
 
   plan_weights(w, cfg [, policy]) -> PlannedWeights
       One-time weight-side work: signed int codes, per-output-channel
@@ -65,6 +65,7 @@ from repro_torch.core.engine import (
     get_backend,
     plan_params,
     plan_weights,
+    planned_axes,
     quantized_backend,
     register_backend,
 )
@@ -212,6 +213,7 @@ __all__ = [
     "op_energy_j",
     "plan_params",
     "plan_weights",
+    "planned_axes",
     "plane_signs",
     "pmac_from_abl_voltage",
     "quantize_acts",

@@ -482,6 +482,7 @@ DEFAULT_EXEMPT_MODULES = frozenset({"router", "shared_gate"})
 # Keys carrying matmul weight leaves ([K, N] linears, [E, K, N] banks,
 # [U, K, N] stacked units).
 DEFAULT_WEIGHT_KEYS = frozenset({"w", "gate", "up", "down"})
+_PLAN_MIN_DIM = 2
 
 
 def plan_params(
@@ -529,7 +530,8 @@ def plan_params(
             if isinstance(v, dict):
                 out[k] = v if k in DEFAULT_EXEMPT_MODULES else walk(v)
             elif (k in DEFAULT_WEIGHT_KEYS and k not in DEFAULT_EXEMPT_KEYS
-                  and isinstance(v, torch.Tensor) and v.ndim >= 2):
+                  and isinstance(v, torch.Tensor)
+                  and v.ndim >= _PLAN_MIN_DIM):
                 out[k] = plan_weights(
                     v, cfg, policy, keep_fp=keep_fp,
                     with_planes=with_planes and v.ndim == 2,
@@ -540,3 +542,38 @@ def plan_params(
         return out
 
     return walk(params)
+
+
+def planned_axes(
+    axes: Any,
+    *,
+    keep_fp: bool = False,
+    weight_keys: frozenset[str] = DEFAULT_WEIGHT_KEYS,
+    exempt_modules: frozenset[str] = DEFAULT_EXEMPT_MODULES,
+) -> Any:
+    """Transform a logical-axes tree to match ``plan_params``' output.
+
+    Codes (and kept fp weights) inherit the weight's axes; the [..., 1, N]
+    epilogue vectors (scale, colsum) keep only the out-channel axis.
+    Planes are None, as in the JAX package (the trees it shards plan
+    without them).
+    """
+
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                out[k] = v if k in exempt_modules else walk(v)
+            elif (k in weight_keys and isinstance(v, tuple)
+                  and len(v) >= _PLAN_MIN_DIM):
+                epi = v[:-2] + (None,) + v[-1:]
+                out[k] = PlannedWeights(codes=v, scale=epi, colsum=epi,
+                                        w=v if keep_fp else None,
+                                        planes=None)
+            else:
+                out[k] = v
+        return out
+
+    return walk(axes)

@@ -26,7 +26,10 @@ kernel from ``csrc/<name>.cu`` (built on first use by ``kernels.build``)
 or raises; on a CPU tensor it runs its ``*_plain`` version, the same
 function in plain PyTorch ops following the reference's float
 arithmetic, which is also what the kernel is held to on the card. There
-is no fallback from one to the other.
+is no fallback from one to the other. On meta tensors (the dry run's
+shape-only steps) a wrapper makes a launch's checks, the depth guard
+included, and returns an empty float32 [M, N] meta tensor: nothing is
+built, launched or counted.
 
 Each wrapper takes an optional ``bn``, the kernel's column tile (16, 32
 or 64; None or 0 picks it by N, as before), the block an autotuned pin
@@ -209,12 +212,14 @@ def cell_adc_gpq_matmul_plain(
     return _plane_shift_add(_sar_codes(pmac, spec).to(torch.float32), spec)
 
 
-def _check_cuda_operands(x: torch.Tensor, w: torch.Tensor,
-                         spec: MacroSpec) -> None:
-    if x.device.type != "cuda" or w.device != x.device:
+def _check_operands(x: torch.Tensor, w: torch.Tensor,
+                    spec: MacroSpec) -> None:
+    """What a launch takes: x and w on one CUDA device (or both on meta,
+    the shape-only path), their dtypes, shapes and layout."""
+    if x.device.type not in ("cuda", "meta") or w.device != x.device:
         raise ValueError(
-            f"the GPQ kernels need x and w on one CUDA device; got "
-            f"{x.device} and {w.device}"
+            f"the GPQ kernels need x and w on one CUDA device (or both on "
+            f"meta); got {x.device} and {w.device}"
         )
     if x.dtype != torch.int32:
         raise TypeError(f"x codes must be int32, got {x.dtype}")
@@ -310,6 +315,14 @@ def _on_cpu(x: torch.Tensor, w: torch.Tensor) -> bool:
     return x.device.type == "cpu" and w.device.type == "cpu"
 
 
+def _abstract_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The output of a call on meta tensors (after the launch's checks):
+    its shape and dtype, nothing launched or counted (the counterpart of
+    a Pallas call's abstract evaluation)."""
+    return torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32,
+                       device="meta")
+
+
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -337,8 +350,10 @@ def gpq_matmul(
     if _on_cpu(x_codes, w_codes):
         return gpq_matmul_plain(x_codes, w_codes, spec)
     _check_plane_spec(spec)
-    _check_cuda_operands(x_codes, w_codes, spec)
+    _check_operands(x_codes, w_codes, spec)
     _depth_guard(x_codes.shape[1], spec)
+    if x_codes.is_meta:
+        return _abstract_out(x_codes, w_codes)
     return _launch(
         "gpq_matmul", x_codes, w_codes, spec.rows_active, spec.weight_bits,
         spec.adc_bits, spec.threshold, spec.adc_codes,
@@ -367,8 +382,10 @@ def adder_tree_gpq_matmul(
     if _on_cpu(x_codes, w_codes):
         return adder_tree_gpq_matmul_plain(x_codes, w_codes, spec)
     _check_plane_spec(spec)
-    _check_cuda_operands(x_codes, w_codes, spec)
+    _check_operands(x_codes, w_codes, spec)
     _merged_depth_guard(x_codes.shape[1], spec)
+    if x_codes.is_meta:
+        return _abstract_out(x_codes, w_codes)
     mq = merged_quant(spec)
     return _launch(
         "adder_tree_gpq_matmul", x_codes, w_codes, spec.rows_active,
@@ -398,7 +415,7 @@ def cell_adc_gpq_matmul(
     if _on_cpu(x_codes, w_codes):
         return cell_adc_gpq_matmul_plain(x_codes, w_codes, spec)
     _check_plane_spec(spec)
-    _check_cuda_operands(x_codes, w_codes, spec)
+    _check_operands(x_codes, w_codes, spec)
     _depth_guard(x_codes.shape[1], spec)
     # The SAR compares pMAC * 2^(adc_bits+1) + threshold against
     # 2 * trial * threshold in int32, with the pMAC clamped to the
@@ -406,6 +423,8 @@ def cell_adc_gpq_matmul(
     if spec.threshold * (4 << spec.adc_bits) >= 1 << 31:
         raise ValueError("the cell-ADC kernel's int32 compares do not "
                          "cover this operating point")
+    if x_codes.is_meta:
+        return _abstract_out(x_codes, w_codes)
     return _launch(
         "cell_adc_gpq_matmul", x_codes, w_codes, spec.rows_active,
         spec.weight_bits, spec.adc_bits, spec.threshold,

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import CIMPolicy, ModelConfig
+from repro_torch.distributed.sharding import constrain_query
 from repro_torch.models import common
 
 
@@ -197,7 +198,7 @@ def attend_full(
     a noisy operating point's projections."""
     s = x.shape[1]
     q, k, v = _project_qkv(params, x, cfg, policy, generator)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
+    q = constrain_query(common.apply_rope(q, positions, cfg.rope_theta))
     k = common.apply_rope(k, positions, cfg.rope_theta)
     out = _self_attention_core(q, k, v, positions=positions[0],
                                window=window, s=s)
@@ -218,7 +219,7 @@ def prefill_cache(
     cache (in place)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, policy)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
+    q = constrain_query(common.apply_rope(q, positions, cfg.rope_theta))
     k = common.apply_rope(k, positions, cfg.rope_theta)
     c = cache.k.shape[1]
     kc = to_cache_dtype(k, cache.k.dtype)  # the cache may be fp8

@@ -2,7 +2,9 @@
 
 Every layer module defines a ``*_spec(cfg) -> dict[str, ParamSpec]``;
 ``init_params(generator, spec)`` materializes the weights on the
-generator's device. One source of truth for shapes and init.
+generator's device and ``logical_axes(spec)`` gives the matching tree of
+logical-axis tuples that ``distributed.sharding`` consumes. One source of
+truth for shapes, axes and init.
 
 A linear layer's weight leaf is a plain tensor (planned on the fly per
 call: ``engine.matmul``) or a precomputed ``engine.PlannedWeights`` (the
@@ -72,6 +74,18 @@ def init_params(generator: torch.Generator, spec_tree: Any,
         return leaf if dtype is None else leaf.to(dtype)
     return {k: init_params(generator, v, dtype)
             for k, v in spec_tree.items()}
+
+
+def is_spec_tree(tree: Any) -> bool:
+    return isinstance(tree, ParamSpec)
+
+
+def logical_axes(spec_tree: Any) -> Any:
+    """The tree of logical-axis tuples matching ``init_params``' structure
+    (what ``distributed.sharding`` maps onto mesh axes)."""
+    if isinstance(spec_tree, ParamSpec):
+        return spec_tree.axes
+    return {k: logical_axes(v) for k, v in spec_tree.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import CIMPolicy, MoEConfig, ModelConfig
 from repro_torch.core.engine import PlannedWeights
+from repro_torch.distributed import sharding
 from repro_torch.models import common
 from repro_torch.models.common import ParamSpec
 from repro_torch.serve.quantized import maybe_dequant
@@ -107,6 +108,19 @@ def expert(bank, e: int):
     return bank.layer(e) if isinstance(bank, PlannedWeights) else bank[e]
 
 
+def _constrain_expert_buffer(xe: torch.Tensor) -> torch.Tensor:
+    """Shard the [G, E, C, d] dispatch buffer: routing groups over the
+    data axes when G divides, else expert-parallel over them
+    (``sharding.expert_buffer_spec``). The identity without an active
+    mesh; under one (world size 1) the spec is computed and ``xe``
+    returned unchanged."""
+    mesh = sharding._ctx_mesh()
+    if mesh is None:
+        return xe
+    sharding.expert_buffer_spec(tuple(xe.shape), mesh)
+    return xe
+
+
 def _capacity(t_group: int, mo: MoEConfig) -> int:
     cap = int(t_group * mo.top_k * mo.capacity_factor / mo.n_experts)
     return max(cap, mo.top_k)
@@ -119,9 +133,8 @@ def _dispatch_grouped(params, x2, top_p, top_e, mo: MoEConfig, dtype):
     (token, choice) pairs claim queue slots choice-major (every first
     choice before any second), and a choice past its expert's capacity
     ``C = Tg*k*cf/E`` is dropped (combine weight zero). Dropped choices
-    scatter zeros into slot 0. The JAX package constrains the [G, E, C, d]
-    buffer's sharding here; on one device that is the identity (ROADMAP
-    A item 1.4 ports the sharding).
+    scatter zeros into slot 0. The [G, E, C, d] buffers are constrained
+    as the JAX package constrains them (``_constrain_expert_buffer``).
     """
     t, d = x2.shape
     e, k = mo.n_experts, mo.top_k
@@ -148,11 +161,13 @@ def _dispatch_grouped(params, x2, top_p, top_e, mo: MoEConfig, dtype):
     xe = torch.zeros((g, e, cap, d), dtype=dtype, device=x2.device)
     xe.index_put_((gi.reshape(-1), eg.reshape(-1), slot.reshape(-1)),
                   upd.reshape(-1, d), accumulate=True)
+    xe = _constrain_expert_buffer(xe)
 
     gate = _dot("gecd,edf->gecf", xe, _bank(params, "gate", dtype))
     up = _dot("gecd,edf->gecf", xe, _bank(params, "up", dtype))
     ye = _dot("gecf,efd->gecd", common.silu(gate) * up,
               _bank(params, "down", dtype))
+    ye = _constrain_expert_buffer(ye)
 
     yt = ye[gi, eg, slot]  # [G, Tg, k, d]
     out = _dot("gtkd,gtk->gtd", yt, (pg * kept).to(dtype))

@@ -33,6 +33,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import CIMPolicy, ModelConfig
 from repro_torch.core.engine import PlannedWeights
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention, common, mamba, moe, rwkv
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import ParamSpec
@@ -116,6 +117,11 @@ def model_spec(cfg: ModelConfig) -> dict:
         spec["pos_emb"] = ParamSpec((cfg.max_seq_len, cfg.d_model),
                                     (None, "embed"), "normal:0.01")
     return spec
+
+
+def model_axes(cfg: ModelConfig) -> Any:
+    """The logical axes of every parameter (``model_spec``'s tree)."""
+    return common.logical_axes(model_spec(cfg))
 
 
 def init(seed: int, cfg: ModelConfig, *, device="cuda") -> Params:
@@ -328,7 +334,7 @@ def _logits(params, x, cfg: ModelConfig, policy: CIMPolicy | None):
         # Vocab-pad columns never win argmax nor enter the softmax mass.
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = logits.masked_fill(pad, -1e30)
-    return logits
+    return constrain(logits, ("act_batch", "act_seq", "act_vocab"))
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
@@ -385,7 +391,8 @@ def forward_train(
     x = _embed(params, batch["tokens"], cfg)
     if cfg.frontend and "frontend_embeds" in batch:
         x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], dim=1)
-    x = _add_pos(params, x, cfg)
+    x = constrain(_add_pos(params, x, cfg),
+                  ("act_batch", "act_seq", "act_embed"))
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     memory = None
@@ -424,7 +431,9 @@ def loss_fn(
     labels = batch["labels"].long()
     if cfg.frontend and "frontend_embeds" in batch:
         logits = logits[:, batch["frontend_embeds"].shape[1]:]
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    logits = constrain(logits.to(torch.float32),
+                       ("act_batch", "act_seq", "act_vocab"))
+    logp = torch.log_softmax(logits, dim=-1)
     # A negative label indexes from the end, as jnp.take_along_axis does;
     # its term is masked.
     idx = torch.where(labels < 0, labels + logp.shape[-1], labels)

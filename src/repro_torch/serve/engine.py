@@ -16,9 +16,16 @@ the float weights).
 
 ``restore_planned`` warm-starts a server from a checkpointed planned
 tree (the train -> serve handoff). The JAX package's ``donate_plan``
-(XLA buffer donation, which PyTorch has no counterpart of) and ``mesh=``
-(tensor-parallel planned trees) are not ported; they raise and name
-their ROADMAP.md item.
+(XLA buffer donation, which PyTorch has no counterpart of) is not ported
+and raises.
+
+Sharded planes: ``mesh=`` (a ``DeviceMesh`` from
+``launch.mesh.make_host_mesh``) places the planned tree under
+``distributed.sharding.shard_planned``: every stored-weight tensor is
+tensor-parallel over the model axis on its output-channel dim, the rest
+replicated (``self.placed`` holds the DTensors). The steps compute on
+each tensor's local shard, which at world size 1 is the whole tensor; a
+mesh of more devices raises ``NotImplementedError`` (one card).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine as cim_engine
+from repro_torch.distributed import sharding
 from repro_torch.models import transformer
 
 
@@ -41,10 +49,13 @@ class ServeEngine:
             raise NotImplementedError(
                 "donate_plan is XLA buffer donation, which PyTorch has no "
                 "counterpart of (ROADMAP.md A11)")
+        device = torch.device(device)
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (tensor-parallel planned trees) comes with slice 6's "
-                "distributed/sharding.py (ROADMAP.md A11)")
+            sharding.check_one_device(mesh, "ServeEngine(mesh=)")
+            mesh_device = getattr(mesh, "device_type", device.type)
+            if mesh_device != device.type:
+                raise ValueError(f"mesh on {mesh_device}, engine on "
+                                 f"{device.type}")
         if calibration is not None and cfg.cim.backend and \
                 not cim_engine.is_builtin_backend(cfg.cim.backend):
             # The explicitly passed result wins: registered under the
@@ -54,11 +65,16 @@ class ServeEngine:
             params = cim_engine.plan_params(
                 params, policy=cfg.cim, calibration=calibration
             )
+        self.placed = None
+        if mesh is not None:
+            self.placed = sharding.shard_planned(params, mesh)
+            params = sharding.local_shards(self.placed)
         self.params = params
         self.cfg = cfg
         self.max_len = max_len
         self.batch = batch
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = device
         self.caches = transformer.init_caches(
             cfg, batch, max_len, dtype=getattr(torch, cfg.activation_dtype),
             device=self.device,

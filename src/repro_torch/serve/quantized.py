@@ -44,5 +44,12 @@ def maybe_dequant(w, dtype) -> torch.Tensor:
 
 def quantize_params_for_serving(params: Any) -> Any:
     """Rewrite matmul weights to int8 PlannedWeights (no float copy, no
-    planes)."""
+    planes). Meta-tensor trees (the dry run's) plan to meta plans."""
     return engine.plan_params(params, keep_fp=False, with_planes=False)
+
+
+def quantize_axes_for_serving(axes: Any) -> Any:
+    """The matching transform of the logical-axes tree (the sharding
+    specs): codes inherit the weight's axes; the [..., 1, N] epilogue
+    vectors (scale, colsum) keep the out-channel axis."""
+    return engine.planned_axes(axes, keep_fp=False)

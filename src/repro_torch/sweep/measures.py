@@ -37,8 +37,9 @@ Built-ins::
                  (variant, shape) — renders back to the tuning cache
                  via the "autotune" analysis
 
-The JAX package's ``dryrun-cell`` (a compile record for a 512-chip TPU
-pod) has no counterpart here.
+    dryrun-cell  launch.dryrun.run_cell per (arch, shape): the cell
+                 built on meta tensors against the production mesh
+                 (per-device bytes, FLOPs; no compile)
 """
 
 from __future__ import annotations
@@ -481,3 +482,33 @@ def _autotune_validate(config: SweepConfig, point: GridPoint) -> str | None:
 
 
 register("autotune", _autotune_point, validate=_autotune_validate)
+
+
+# ---------------------------------------------------------------------------
+# dryrun-cell — shape-only launch cells per (arch, shape)
+# ---------------------------------------------------------------------------
+
+
+def _dryrun_cell(config: SweepConfig, point: GridPoint) -> dict:
+    from repro_torch.launch import dryrun
+
+    p = dict(config.params)
+    rec = dryrun.run_cell(
+        point.values["arch"], point.values["shape"],
+        multi_pod=p.get("mesh", "single") == "multi",
+        do_probe=bool(p.get("probe", False)),
+    )
+    # Wall/build times and tracebacks are non-deterministic; the
+    # deliverable is the memory/FLOPs record.
+    for key in ("wall_s", "lower_s", "compile_s", "traceback"):
+        rec.pop(key, None)
+    return rec
+
+
+def _dryrun_validate(config: SweepConfig, point: GridPoint) -> str | None:
+    if "arch" not in point.values or "shape" not in point.values:
+        return "dryrun-cell measure needs 'arch' and 'shape' axes"
+    return None
+
+
+register("dryrun-cell", _dryrun_cell, validate=_dryrun_validate)

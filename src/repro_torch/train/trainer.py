@@ -125,11 +125,19 @@ def make_train_step(
     scalars). Returns step(state, batch) -> (state, metrics)."""
 
     def step(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
-        seed, new_rng = split_key(state.rng)
         device = state.rng.device
+        if device.type == "meta":
+            # A shape-only step (launch.dryrun): a meta key holds no value,
+            # so the step draws nothing and the key passes through.
+            new_rng = state.rng
 
-        def gen():
-            return torch.Generator(device=device).manual_seed(seed)
+            def gen():
+                return None
+        else:
+            seed, new_rng = split_key(state.rng)
+
+            def gen():
+                return torch.Generator(device=device).manual_seed(seed)
 
         if microbatches > 1:
             # batch leaves are [mb * b, ...] -> microbatch i's [b, ...]

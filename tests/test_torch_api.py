@@ -1,8 +1,7 @@
 """The port's package-level API against the JAX reference's, on the CPU.
 
 Every name of a reference package's ``__all__`` is in the port
-package's, but for the names that come with the sharding rules
-(``core.planned_axes`` and the ``distributed`` package). The deprecated one-shot ``cim_matmul`` and
+package's. The deprecated one-shot ``cim_matmul`` and
 ``cim_matmul_ste`` shims and ``dequantize_*`` equal the reference's bit
 for bit (noiseless, numpy-seeded inputs); ``register_variant`` replaces a
 variant only when asked; ``launch.dryrun.validate_cell`` equals the
@@ -22,9 +21,7 @@ from repro import core as jcore
 from repro_torch import core as tcore
 
 PACKAGES = ("core", "kernels", "models", "configs", "checkpoint", "serve",
-            "sweep", "data", "optim", "train")
-# Exported with the sharding rules (ROADMAP A 1.4).
-WAITING = {"core": {"planned_axes"}}
+            "sweep", "data", "optim", "train", "distributed")
 MODES = ("fp", "cim-exact", "cim", "cim-kernel")
 
 
@@ -55,7 +52,7 @@ def reference_dryrun():
 def test_reference_all_resolves_in_the_port(package):
     ref = importlib.import_module(f"repro.{package}")
     port = importlib.import_module(f"repro_torch.{package}")
-    want = set(ref.__all__) - WAITING.get(package, set())
+    want = set(ref.__all__)
     assert want <= set(port.__all__)
     missing = [n for n in sorted(want) if not hasattr(port, n)]
     assert not missing
@@ -129,6 +126,21 @@ def test_register_variant_overwrite():
     with pytest.raises(ValueError) as port_err:
         tcore.register_variant(original)
     assert str(port_err.value) == str(ref_err.value)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_resnet20_cifar_config_matches_reference(smoke):
+    """``get_config("resnet20_cifar")`` gives the reference's ResNet-20
+    records (CONFIG and SMOKE), field for field, nested policy included."""
+    from repro.configs.base import get_config as jget
+    from repro_torch.configs.base import get_config as tget
+    from repro_torch.models.resnet import ResNetConfig
+
+    want = jget("resnet20_cifar", smoke=smoke)
+    got = tget("resnet20_cifar", smoke=smoke)
+    assert isinstance(got, ResNetConfig)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert tget("resnet20-cifar", smoke=smoke) == got
 
 
 def test_validate_cell_matches_reference(reference_dryrun):

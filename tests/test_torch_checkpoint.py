@@ -3,10 +3,10 @@ train -> serve handoff and the older int8 leaves, against the JAX
 reference on the CPU.
 
 Checkpoints cross both ways bit for bit: the port's ``save`` restores in
-the reference's ``store.restore`` and the reference's ``save`` (zlib; the
-reference writes zstd where ``zstandard`` is installed, so the tests set
-its codec) in the port's. The port's msgpack encoder equals the
-``msgpack`` library byte for byte. The reader resolves bfloat16 and
+the reference's ``store.restore``, and the reference's ``save`` in the
+port's, both at its default codec (zstd where ``zstandard`` imports) and
+with its codec set to zlib (the ``zlib_reference`` fixture). The port's
+msgpack encoder equals the ``msgpack`` library byte for byte. The reader resolves bfloat16 and
 float8_e4m3fn without ``ml_dtypes``, in a fresh interpreter that never
 imports JAX. Tokens of a restored planned tree equal the reference's
 (its ServeEngine eager, as tests/test_torch_serve.py runs it).
@@ -197,6 +197,21 @@ def test_reference_save_restores_in_port(tmp_path, zlib_reference):
     assert sorted(flat) == ["lst", "nested", "opt", "plan", "rng", "step",
                             "w"]
     assert flat["plan"]["codes"].dtype == torch.int8
+
+
+def test_reference_default_zstd_save_restores_in_port(tmp_path):
+    """The reference's ``save`` at its defaults writes zstd wherever
+    ``zstandard`` imports; the port reads it bit for bit (bfloat16,
+    float8, float32 and integer leaves)."""
+    assert jstore._DEFAULT_COMPRESSION == "zstd"
+    a = _arrays(np.random.default_rng(4))
+    jstore.save(_ref_tree(a), tmp_path, 6)
+    meta = msgpack.unpackb((tmp_path / "step_00000006" /
+                            "manifest.msgpack").read_bytes())
+    assert meta["compression"] == "zstd"
+    out = tstore.restore(tmp_path, _port_tree(_arrays(
+        np.random.default_rng(5))))
+    _assert_same_leaves(out, _ref_tree(a))
 
 
 @pytest.mark.parametrize("obj", [

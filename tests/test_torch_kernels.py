@@ -178,14 +178,25 @@ def test_depth_guard_raises_like_reference():
                      interpret=True)
 
 
-def test_non_cpu_tensor_never_takes_the_plain_version():
-    """A tensor off the CPU launches the kernel or raises: here (no CUDA
-    device) the operand check refuses a meta tensor before any build."""
+def _refuse_plain(*_a, **_k):
+    raise AssertionError("the plain version ran on a non-CPU tensor")
+
+
+def test_non_cpu_tensor_never_takes_the_plain_version(monkeypatch):
+    """A tensor off the CPU launches the kernel or raises, never the plain
+    version: here (no CUDA device) meta tensors take the shape-only path
+    (the launch's checks, an empty meta output, nothing launched), and a
+    meta tensor beside a CPU one is refused by the operand check before
+    any build."""
+    monkeypatch.setattr(cim_mac, "gpq_matmul_plain", _refuse_plain)
     x = torch.empty((4, 16), dtype=torch.int32, device="meta")
     w = torch.empty((16, 4), dtype=torch.int8, device="meta")
     before = cim_mac.LAUNCHES["gpq_matmul"]
+    y = cim_mac.gpq_matmul(x, w, TConfig())
+    assert y.is_meta and y.shape == (4, 4) and y.dtype == torch.float32
     with pytest.raises(ValueError, match="CUDA"):
-        cim_mac.gpq_matmul(x, w, TConfig())
+        cim_mac.gpq_matmul(x, torch.zeros((16, 4), dtype=torch.int8),
+                           TConfig())
     assert cim_mac.LAUNCHES["gpq_matmul"] == before
 
 
@@ -374,14 +385,22 @@ def test_b2_old_integer_conversion_parts_from_the_reference(
 @pytest.mark.parametrize("variant,kernel", [
     ("adder-tree", "adder_tree_gpq_matmul"),
     ("cell-adc", "cell_adc_gpq_matmul")])
-def test_b2_b3_non_cpu_tensor_never_takes_the_plain_version(variant, kernel):
+def test_b2_b3_non_cpu_tensor_never_takes_the_plain_version(
+        variant, kernel, monkeypatch):
+    monkeypatch.setattr(cim_mac, f"{kernel}_plain", _refuse_plain)
     x = torch.empty((4, 16), dtype=torch.int32, device="meta")
     w = torch.empty((16, 4), dtype=torch.int8, device="meta")
+    w_cpu = torch.zeros((16, 4), dtype=torch.int8)
     before = cim_mac.LAUNCHES[kernel]
+    for y in (getattr(cim_mac, kernel)(x, w, TConfig()),
+              dispatch.dispatch(x, w, TConfig(), variant=variant,
+                                backend="cuda")):
+        assert y.is_meta and y.shape == (4, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        getattr(cim_mac, kernel)(x, w, TConfig())
+        getattr(cim_mac, kernel)(x, w_cpu, TConfig())
     with pytest.raises(ValueError, match="CUDA"):
-        dispatch.dispatch(x, w, TConfig(), variant=variant, backend="cuda")
+        dispatch.dispatch(x, w_cpu, TConfig(), variant=variant,
+                          backend="cuda")
     assert cim_mac.LAUNCHES[kernel] == before
 
 

@@ -228,11 +228,18 @@ def test_serve_engine_registers_calibration(params):
 
 
 def test_serve_engine_unported_options_raise(params):
+    """donate_plan raises; so does a mesh of more than one device (the
+    port serves on one; tests/test_torch_sharding.py serves at world
+    size 1)."""
+    from repro_torch.launch.mesh import make_production_mesh
+
     tc = tget("qwen2_0_5b", smoke=True)
-    for kw in (dict(donate_plan=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tserve.ServeEngine(params[1], tc, max_len=8, batch=1,
-                               device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tserve.ServeEngine(params[1], tc, max_len=8, batch=1, device="cpu",
+                           donate_plan=True)
+    with pytest.raises(NotImplementedError, match="256 devices"):
+        tserve.ServeEngine(params[1], tc, max_len=8, batch=1, device="cpu",
+                           plan=True, mesh=make_production_mesh())
     # restore_planned is ported (tests/test_torch_checkpoint.py): a
     # directory without a checkpoint raises as the store's restore does
     with pytest.raises(FileNotFoundError, match="LATEST"):

@@ -373,10 +373,10 @@ class TestPortContracts:
             "accuracy_study"
         assert cfg.override(out_dir="x/y").sweep_dir == REPO_ROOT / "x/y"
 
-    def test_dryrun_cell_is_not_registered(self):
-        assert "dryrun-cell" not in measures.registered()
-        with pytest.raises(ValueError, match="unknown measure"):
-            measures.resolve("dryrun-cell")
+    def test_dryrun_cell_is_registered(self):
+        assert "dryrun-cell" in measures.registered()
+        m = measures.resolve("dryrun-cell")
+        assert m.name == "dryrun-cell" and m.validate is not None
 
     def test_asking_for_the_card_without_one_fails(self, tmp_path,
                                                    monkeypatch):
@@ -499,6 +499,7 @@ for argv in (["--list-measures"],
         assert e.code in (0, None), e.code
 import repro_torch.checkpoint, repro_torch.configs, repro_torch.core
 import repro_torch.kernels, repro_torch.models, repro_torch.serve
+import repro_torch.distributed, repro_torch.launch.dryrun
 from repro_torch.kernels import build
 assert not build._LIBS and not build.BUILD_LOG
 bad = sorted(m for m in sys.modules
@@ -514,7 +515,8 @@ print("clean")
         )
         assert r.returncode == 0, r.stderr[-2000:]
         assert r.stdout.splitlines()[-1] == "clean"
-        assert "autotune\ncim-accuracy\ngrid-echo\npareto\n" in r.stdout
+        assert ("autotune\ncim-accuracy\ndryrun-cell\ngrid-echo\npareto\n"
+                in r.stdout)
         assert "9 grid points, 9 feasible" in r.stdout
         assert "54 grid points, 54 feasible" in r.stdout
 
