@@ -6,7 +6,8 @@
 ``SyntheticCIFAR(n_classes=10, seed=0, noise=2.2)``. ``cim_policy`` is
 the paper operating-point policy the accuracy studies evaluate it under:
 stem conv and fc layer digital, percentile-clipped (0.995) unsigned
-activation ranges.
+activation ranges. ``train_resnet_baseline`` trains that checkpoint again
+(or loads it) as the JAX package's ``benchmarks/common.py`` does.
 """
 
 from __future__ import annotations
@@ -14,16 +15,22 @@ from __future__ import annotations
 import pathlib
 from typing import Any
 
+import torch
+
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import CIMPolicy
 from repro_torch.core.params import CIMConfig
 from repro_torch.data.synthetic import SyntheticCIFAR
+from repro_torch.device import full_float32
+from repro_torch.models import resnet
 from repro_torch.models.resnet import ResNetConfig
+from repro_torch.optim import adamw
 
 N_CLASSES = 10
-CHECKPOINT_DIR = (
-    pathlib.Path(__file__).resolve().parents[3] / "results" / "resnet_baseline"
-)
+_ROOT = pathlib.Path(__file__).resolve().parents[3]
+CHECKPOINT_DIR = _ROOT / "results" / "resnet_baseline"
+# Where this package saves a baseline it trains (it never writes results/).
+BUILD_DIR = _ROOT / "build" / "resnet_baseline"
 
 RESNET_CFG = ResNetConfig(
     n_classes=N_CLASSES,
@@ -62,3 +69,44 @@ def load_baseline(
     """(params, bn_state) of the committed checkpoint, as tensors."""
     tree = store.restore(directory, device=device)
     return tree["params"], tree["bn"]
+
+
+def train_resnet_baseline(
+    *, steps: int = 400, batch: int = 64, lr: float = 2e-3, seed: int = 0,
+    cache: bool = True, device: Any = "cuda",
+) -> tuple[dict, dict]:
+    """Train (or load) the fp32 baseline the CIM studies evaluate:
+    (params, bn_state) on ``device``.
+
+    Under ``cache`` it loads the committed checkpoint (``CHECKPOINT_DIR``)
+    when there is one, else one this function saved (``BUILD_DIR``), else
+    trains and saves there at step ``steps`` in the JAX package's
+    ``{"params", "bn"}`` layout. Training is ``benchmarks/common.py``'s:
+    ``steps`` AdamW steps (warm-up 20, cosine, weight decay 1e-4) of
+    ``resnet.loss_fn`` with batch statistics over ``dataset().batch(batch,
+    step=s)``, in full float32 (TF32 off for the step, then restored).
+    """
+    if cache:
+        for directory in (CHECKPOINT_DIR, BUILD_DIR):
+            if store.latest_step(directory) is not None:
+                return load_baseline(directory, device=device)
+    params, bn = resnet.init(seed, RESNET_CFG, device=device)
+    opt_cfg = adamw.OptimizerConfig(lr=lr, warmup_steps=20, total_steps=steps,
+                                    weight_decay=1e-4, schedule="cosine")
+    opt = adamw.init_state(params)
+    ds = dataset()
+    with full_float32():
+        for s in range(steps):
+            b = ds.batch(batch, step=s)
+            data = {"image": torch.from_numpy(b["image"]).to(device),
+                    "label": torch.from_numpy(b["label"]).to(device)}
+            p = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+            loss, (bn, _) = resnet.loss_fn(p, bn, data, RESNET_CFG,
+                                           train=True)
+            grads = iter(torch.autograd.grad(loss, adamw.tree_leaves(p)))
+            params, opt, _ = adamw.apply_updates(
+                params, adamw.tree_map(lambda _: next(grads), params), opt,
+                opt_cfg)
+    if cache:
+        store.save({"params": params, "bn": bn}, BUILD_DIR, steps)
+    return params, bn

@@ -99,8 +99,7 @@ def _macro_op_oracle(
     pmac_hat = adc.adc_dequant(code, cfg)
     signs = quant.plane_signs(cfg.weight_bits, x.device).to(torch.float32)
     outputs = torch.sum(pmac_hat * signs[None, :], dim=-1)
-    pmac_ideal = torch.einsum("r,bro->ob", x_act.to(torch.int64),
-                              planes.to(torch.int64)).to(torch.int32)
+    pmac_ideal = quant.plane_pmacs(x_act, planes).T.to(torch.int32)
     return MacroOut(
         outputs=outputs.to(torch.float32),
         adc_codes=code,
@@ -122,8 +121,7 @@ def macro_op_reference_digital(
         < cfg.rows_active
     x_act = torch.where(active, x, torch.zeros_like(x))
     planes = quant.bitslice_weights(w_codes, cfg.weight_bits)  # [B,16,O]
-    pmac = torch.einsum("r,bro->bo", x_act.to(torch.int64),
-                        planes.to(torch.int64))  # [B, O]
+    pmac = quant.plane_pmacs(x_act, planes)  # [B, O]
     code = adc.adc_transfer_int(pmac, cfg)
     pmac_hat = adc.adc_dequant(code, cfg)
     signs = quant.plane_signs(cfg.weight_bits, x.device).to(torch.float32)

@@ -465,10 +465,8 @@ class AnalogPipeline:
         for s in self.stages:
             state = s(state, spec)
         if state.x_active is not None:
-            pmac_ideal = torch.einsum(
-                "r,bro->ob", state.x_active.to(torch.int64),
-                planes.to(torch.int64),
-            ).to(torch.int32)
+            pmac_ideal = quant.plane_pmacs(state.x_active,
+                                           planes).T.to(torch.int32)
             state = state.evolve(pmac_ideal=pmac_ideal)
         return state
 

@@ -205,6 +205,14 @@ def bitslice_weights(
     return planes.to(dtype)
 
 
+def plane_pmacs(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+    """[B, O] int64 partial MACs ``sum_r x[r] * planes[b, r, o]`` of one
+    macro cycle's codes x [R] and bit planes [B, R, O]: exact on every
+    device (CUDA has no integer einsum or matmul)."""
+    return torch.sum(x.to(torch.int64)[None, :, None]
+                     * planes.to(torch.int64), dim=1)
+
+
 def plane_signs(weight_bits: int, device=None) -> torch.Tensor:
     """Shift-add weighting per plane: [1, 2, 4, ..., -2**(B-1)] (int32)."""
     w = [1 << b for b in range(weight_bits)]

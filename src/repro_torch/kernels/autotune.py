@@ -375,15 +375,18 @@ def best_of(reps: int, device: torch.device) -> MeasureFn:
 
 def sweep_operands(
     spec: MacroSpec, m: int, k: int, n: int, *, seed: int = 0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None,
            torch.Tensor | None]:
     """The operands a served plan gives one macro matmul, from a numpy
-    seed: int32 activation codes x [M, K], int8 weight codes w [K, N], the
-    packed planes (``engine._grouped_planes``) and the spread slots
-    (``quant.spread_slots``; None where the point cannot pack them)."""
+    seed, on ``device`` (default: the card, as :func:`sweep_shape`; the
+    CPU when ``device="cpu"``): int32 activation codes x [M, K], int8
+    weight codes w [K, N], the packed planes (``engine._grouped_planes``)
+    and the spread slots (``quant.spread_slots``; None where the point
+    cannot pack them)."""
     from repro_torch.core import engine, quant  # engine imports dispatch
 
+    device = torch.device(device or _default_device())
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.integers(0, spec.act_levels, (m, k))
                          .astype(np.int32)).to(device)

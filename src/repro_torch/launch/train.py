@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import CIMPolicy, get_config
 from repro_torch.data import MarkovLM, ShardedLoader
+from repro_torch.device import resolve
 from repro_torch.models import transformer
 from repro_torch.optim import OptimizerConfig
 from repro_torch.optim.adamw import tree_leaves
@@ -53,10 +54,7 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("training runs on a CUDA device, and none is "
-                         "available; pass --device cpu to run on the CPU")
+    device = resolve(args.device, error=SystemExit)
     cfg = get_config(args.arch, smoke=args.smoke)
     if args.cim_mode:
         cfg = cfg.replace(cim=CIMPolicy(mode=args.cim_mode))

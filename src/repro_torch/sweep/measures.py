@@ -123,16 +123,9 @@ def _params_key(config: SweepConfig) -> str:
 def measure_device(config: SweepConfig):
     """``params["device"]`` as a torch.device (default the card); asking
     for the card without one raises."""
-    import torch
+    from repro_torch.device import resolve
 
-    device = torch.device(str(config.params.get("device", "cuda")))
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"{config.name}: the sweep runs on {device} "
-            "(params.device) and torch.cuda.is_available() is false; set "
-            "params.device to 'cpu' to run on the CPU"
-        )
-    return device
+    return resolve(str(config.params.get("device", "cuda")))
 
 
 # ---------------------------------------------------------------------------
@@ -345,21 +338,13 @@ _RESNET_BASELINE: dict[str, tuple] = {}
 
 
 def _resnet_baseline(device) -> tuple[dict, dict]:
-    """The committed checkpoint on ``device``, loaded once per process.
-
-    The JAX package trains the baseline when the checkpoint is missing;
-    this package only loads it, and raises naming the directory.
-    """
-    from repro_torch.checkpoint import store
+    """The baseline on ``device``, loaded (or trained when no checkpoint
+    exists, as the JAX package's studies do) once per process."""
     from repro_torch.configs import resnet as rcfg
 
     if str(device) not in _RESNET_BASELINE:
-        if store.latest_step(rcfg.CHECKPOINT_DIR) is None:
-            raise FileNotFoundError(
-                f"no ResNet baseline checkpoint under {rcfg.CHECKPOINT_DIR}"
-                " (the JAX package's benchmarks train and save it there)"
-            )
-        _RESNET_BASELINE[str(device)] = rcfg.load_baseline(device=device)
+        _RESNET_BASELINE[str(device)] = rcfg.train_resnet_baseline(
+            device=device)
     return _RESNET_BASELINE[str(device)]
 
 

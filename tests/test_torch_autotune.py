@@ -137,7 +137,8 @@ def test_sweep_operands_are_the_reference_served_plan():
     from repro.core import quant as jquant
 
     m, k, n = 5, 40, 12
-    x, w, planes, slots = autotune.sweep_operands(OP, m, k, n, seed=3)
+    x, w, planes, slots = autotune.sweep_operands(OP, m, k, n, seed=3,
+                                                  device="cpu")
     rng = np.random.default_rng(3)
     jx = rng.integers(0, JOP.act_levels, (m, k))
     jw = rng.integers(-128, 128, (k, n)).astype(np.int8)
@@ -231,7 +232,8 @@ def test_merge_sweep_version_and_stale_entries(tmp_path):
 
 
 def _codes(m, k, n, seed=0):
-    x, w, _, _ = autotune.sweep_operands(OP, m, k, n, seed=seed)
+    x, w, _, _ = autotune.sweep_operands(OP, m, k, n, seed=seed,
+                                         device="cpu")
     return x, w
 
 

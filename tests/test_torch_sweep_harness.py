@@ -387,19 +387,39 @@ class TestPortContracts:
             runner.run(cfg, log=lambda _s: None)
         assert runner.read_points(cfg) == {}
 
-    def test_missing_checkpoint_raises_naming_it(self, tmp_path,
-                                                 monkeypatch):
-        """The reference trains the baseline when its checkpoint is
-        missing; the port raises, naming the directory."""
+    def test_missing_checkpoint_is_trained_and_saved(self, tmp_path,
+                                                     monkeypatch):
+        """No checkpoint: cim-accuracy trains the baseline, as the
+        reference's measure does, and saves it under the build directory
+        (never under results/)."""
+        import functools
+
+        from repro_torch.checkpoint import store
         from repro_torch.configs import resnet as rcfg
 
         monkeypatch.setattr(rcfg, "CHECKPOINT_DIR", tmp_path / "none")
+        monkeypatch.setattr(rcfg, "BUILD_DIR", tmp_path / "build")
         monkeypatch.setattr(measures, "_RESNET_BASELINE", {})
+        monkeypatch.setattr(rcfg, "train_resnet_baseline", functools.partial(
+            rcfg.train_resnet_baseline, steps=2, batch=4))
+        monkeypatch.setattr(measures, "evaluate", functools.partial(
+            measures.evaluate, batch=4))
         cfg = echo_config(tmp_path, name="acc", measure="cim-accuracy",
-                          params={"device": "cpu"},
-                          axes={"rows_active": [16]})
-        with pytest.raises(FileNotFoundError, match=str(tmp_path / "none")):
-            runner.run(cfg, log=lambda _s: None)
+                          params={"device": "cpu", "n_images": 4},
+                          axes={"rows_active": [16], "noisy": [False]})
+        rep = runner.run(cfg, log=lambda _s: None)
+        assert rep.n_ok == 1
+        assert store.latest_step(tmp_path / "build") == 2
+        assert not (tmp_path / "none").exists()
+        params, bn = measures._RESNET_BASELINE["cpu"]
+        saved = rcfg.load_baseline(tmp_path / "build", device="cpu")
+        for name, t in store.leaves_with_names({"params": params,
+                                                "bn": bn}):
+            *path, leaf = name.split("/")
+            node = {"params": saved[0], "bn": saved[1]}
+            for k in path:
+                node = node[k]
+            assert torch.equal(node[leaf], t), name
 
     def test_autotune_skips_only_an_empty_sweep(self, tmp_path,
                                                 monkeypatch):
