@@ -41,6 +41,7 @@ from typing import Any, Callable, Protocol
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import matmul as matmul_lib
 from repro_torch.core import quant
 from repro_torch.core.params import CIMConfig
@@ -308,24 +309,32 @@ def quantized_backend(int_fn) -> BackendFn:
     """Wrap ``int_fn(x_codes, plan, cfg, generator) -> y_int`` with the
     shared quantized-execution epilogue (the digital periphery of the
     macro): dynamic activation quantization in, dequantization +
-    zero-point column correction out."""
+    zero-point column correction out, cast back to the activation dtype
+    outside 'fp' mode. Each of the three parts runs in its span
+    (``repro_torch.engine.quantize``, ``.macro``, ``.epilogue``)."""
 
     def run(x2, plan, policy, generator):
         cfg = policy.cim
-        qa = quant.quantize_acts(
-            x2,
-            cfg.act_bits,
-            symmetric=policy.act_symmetric,
-            clip_pct=policy.act_clip_pct,
-        )
-        y_int = int_fn(qa.codes, plan, cfg, generator)
-        colsum = plan.colsum
-        if colsum is None:  # minimal plans: recover digitally (free)
-            colsum = torch.sum(
-                plan.codes_i32, dim=-2, keepdim=True
-            ).to(torch.float32)
-        y = y_int - qa.zero_point.to(torch.float32) * colsum
-        return y * qa.scale * plan.scale
+        with tracing.span("repro_torch.engine.quantize"):
+            qa = quant.quantize_acts(
+                x2,
+                cfg.act_bits,
+                symmetric=policy.act_symmetric,
+                clip_pct=policy.act_clip_pct,
+            )
+        with tracing.span("repro_torch.engine.macro"):
+            y_int = int_fn(qa.codes, plan, cfg, generator)
+        with tracing.span("repro_torch.engine.epilogue"):
+            colsum = plan.colsum
+            if colsum is None:  # minimal plans: recover digitally (free)
+                colsum = torch.sum(
+                    plan.codes_i32, dim=-2, keepdim=True
+                ).to(torch.float32)
+            y = y_int - qa.zero_point.to(torch.float32) * colsum
+            y = y * qa.scale * plan.scale
+            if policy.mode != "fp":  # execute's cast, inside the span
+                y = y.to(x2.dtype)
+        return y
 
     return run
 
@@ -402,7 +411,7 @@ def execute(
     x2 = x.reshape(-1, orig_shape[-1])
     y = fn(x2, plan, policy, generator)
     y = y.reshape(*orig_shape[:-1], plan.n)
-    if policy.mode != "fp":
+    if policy.mode != "fp" and y.dtype != x.dtype:
         y = y.to(x.dtype)
     return y
 

@@ -28,6 +28,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import CIMPolicy
 from repro_torch.core import engine
 from repro_torch.core.engine import PlannedWeights
@@ -140,11 +141,12 @@ def im2col(
 ) -> torch.Tensor:
     """NHWC x -> [B, Ho, Wo, cin*kh*kw] patches, features in (cin, kh, kw)
     order: ``jax.lax.conv_general_dilated_patches`` with "SAME" padding."""
-    kh, kw = kernel_hw
-    b = x.shape[0]
-    xp, ho, wo = _pad_same(x.permute(0, 3, 1, 2), kh, kw, stride)
-    cols = F.unfold(xp, (kh, kw), stride=stride)  # [B, cin*kh*kw, Ho*Wo]
-    return cols.transpose(1, 2).reshape(b, ho, wo, -1)
+    with tracing.span("repro_torch.resnet.im2col"):
+        kh, kw = kernel_hw
+        b = x.shape[0]
+        xp, ho, wo = _pad_same(x.permute(0, 3, 1, 2), kh, kw, stride)
+        cols = F.unfold(xp, (kh, kw), stride=stride)  # [B, cin*kh*kw, Ho*Wo]
+        return cols.transpose(1, 2).reshape(b, ho, wo, -1)
 
 
 def conv2d_same(
@@ -267,46 +269,47 @@ def forward(
     generator: torch.Generator | None = None,
     tap=None,
 ) -> tuple[torch.Tensor, dict]:
-    policy = cfg.cim
-    new_state: dict[str, Any] = {}
+    with tracing.span("repro_torch.resnet.forward"):
+        policy = cfg.cim
+        new_state: dict[str, Any] = {}
 
-    h = _conv(params["stem"], x, 1, policy, generator=generator,
-              cim_enabled=policy.apply_to_stem, name="stem", tap=tap)
-    h, new_state["bn_stem"] = _bn(params["bn_stem"], bn_state["bn_stem"],
-                                  h, train, cfg.bn_momentum)
-    h = torch.relu(h)
+        h = _conv(params["stem"], x, 1, policy, generator=generator,
+                  cim_enabled=policy.apply_to_stem, name="stem", tap=tap)
+        h, new_state["bn_stem"] = _bn(params["bn_stem"], bn_state["bn_stem"],
+                                      h, train, cfg.bn_momentum)
+        h = torch.relu(h)
 
-    for si, _ in enumerate(cfg.widths):
-        for bi in range(cfg.blocks_per_stage):
-            name = f"s{si}b{bi}"
-            bp, bs = params[name], bn_state[name]
-            ns = {}
-            stride = 2 if (bi == 0 and si > 0) else 1
-            r = _conv(bp["conv1"], h, stride, policy, generator=generator,
-                      name=f"{name}/conv1", tap=tap)
-            r, ns["bn1"] = _bn(bp["bn1"], bs["bn1"], r, train,
-                               cfg.bn_momentum)
-            r = torch.relu(r)
-            r = _conv(bp["conv2"], r, 1, policy, generator=generator,
-                      name=f"{name}/conv2", tap=tap)
-            r, ns["bn2"] = _bn(bp["bn2"], bs["bn2"], r, train,
-                               cfg.bn_momentum)
-            if "proj" in bp:
-                sc = _conv(bp["proj"], h, stride, policy,
-                           generator=generator, name=f"{name}/proj",
-                           tap=tap)
-                sc, ns["bn_proj"] = _bn(bp["bn_proj"], bs["bn_proj"], sc,
-                                        train, cfg.bn_momentum)
-            else:
-                sc = h
-            h = torch.relu(r + sc)
-            new_state[name] = ns
+        for si, _ in enumerate(cfg.widths):
+            for bi in range(cfg.blocks_per_stage):
+                name = f"s{si}b{bi}"
+                bp, bs = params[name], bn_state[name]
+                ns = {}
+                stride = 2 if (bi == 0 and si > 0) else 1
+                r = _conv(bp["conv1"], h, stride, policy, generator=generator,
+                          name=f"{name}/conv1", tap=tap)
+                r, ns["bn1"] = _bn(bp["bn1"], bs["bn1"], r, train,
+                                   cfg.bn_momentum)
+                r = torch.relu(r)
+                r = _conv(bp["conv2"], r, 1, policy, generator=generator,
+                          name=f"{name}/conv2", tap=tap)
+                r, ns["bn2"] = _bn(bp["bn2"], bs["bn2"], r, train,
+                                   cfg.bn_momentum)
+                if "proj" in bp:
+                    sc = _conv(bp["proj"], h, stride, policy,
+                               generator=generator, name=f"{name}/proj",
+                               tap=tap)
+                    sc, ns["bn_proj"] = _bn(bp["bn_proj"], bs["bn_proj"], sc,
+                                            train, cfg.bn_momentum)
+                else:
+                    sc = h
+                h = torch.relu(r + sc)
+                new_state[name] = ns
 
-    h = torch.mean(h, dim=(1, 2))  # global average pool
-    logits = common.linear_apply(params["fc"], h, policy,
-                                 cim_enabled=policy.apply_to_logits,
-                                 generator=generator)
-    return logits, new_state
+        h = torch.mean(h, dim=(1, 2))  # global average pool
+        logits = common.linear_apply(params["fc"], h, policy,
+                                     cim_enabled=policy.apply_to_logits,
+                                     generator=generator)
+        return logits, new_state
 
 
 @torch.no_grad()

@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine as cim_engine
 from repro_torch.distributed import sharding
@@ -107,15 +108,17 @@ class ServeEngine:
 
     @torch.no_grad()
     def _prefill(self, prompts: torch.Tensor) -> torch.Tensor:
-        logits, self.caches = transformer.prefill(
-            self.params, prompts, self.caches, self.cfg)
+        with tracing.span("repro_torch.serve.prefill"):
+            logits, self.caches = transformer.prefill(
+                self.params, prompts, self.caches, self.cfg)
         return logits
 
     @torch.no_grad()
     def _decode_step(self, tok: torch.Tensor, pos: int) -> torch.Tensor:
         """One decode step of the whole batch at position ``pos``."""
-        logits, self.caches = transformer.decode_step(
-            self.params, tok, pos, self.caches, self.cfg)
+        with tracing.span("repro_torch.serve.decode_step"):
+            logits, self.caches = transformer.decode_step(
+                self.params, tok, pos, self.caches, self.cfg)
         return logits
 
     def generate(self, prompts: torch.Tensor, n_tokens: int) -> np.ndarray:
@@ -123,13 +126,14 @@ class ServeEngine:
         b, s = prompts.shape
         if b != self.batch:
             raise ValueError(f"prompt batch {b} != engine batch {self.batch}")
-        logits = self._prefill(prompts.to(self.device))
-        tok = torch.argmax(logits, dim=-1)
-        out = [tok]
-        for i in range(n_tokens - 1):
-            tok = torch.argmax(self._decode_step(tok, s + i), dim=-1)
-            out.append(tok)
-        return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+        with tracing.span("repro_torch.serve.generate"):
+            logits = self._prefill(prompts.to(self.device))
+            tok = torch.argmax(logits, dim=-1)
+            out = [tok]
+            for i in range(n_tokens - 1):
+                tok = torch.argmax(self._decode_step(tok, s + i), dim=-1)
+                out.append(tok)
+            return torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
 
 
 @dataclasses.dataclass
