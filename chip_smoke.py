@@ -229,9 +229,10 @@ file; it exits non-zero without either. Phases (each one fails the run):
               (batch 4, 128 tokens, 32 new): tokens == a mesh-free engine's
               on the same weights, every planned tensor a DTensor placed as
               planned_param_shardings gives, each local shard the whole
-              tensor on the card (the one the engine computes on), 168 B1
-              launches and (p8t, cuda) resolutions in the prefill and in
-              each decode step, each counted, B1 == plain on a step's
+              tensor on the card (the one the engine computes on), 168
+              (p8t, cuda) resolutions in the prefill and in each decode
+              step, each counted, 168 B1 kernels a step in a traced
+              generate's device trace, B1 == plain on a step's
               operands; run_cell on meta for every
               (arch, shape) of shape_cells over the 10 archs (single mesh,
               no probe; spawned processes, the seconds printed): every
@@ -1300,18 +1301,19 @@ def phase_lm():
                           max_len=LM_PROMPT + LM_GEN + 1, batch=LM_BATCH,
                           plan=mode == "fp")
         eng.generate(prompts, 2)  # warm
-        cim_mac.LAUNCHES.clear()
         toks, total_ms = host_ms(lambda eng=eng: eng.generate(prompts,
                                                               LM_GEN))
-        launched = cim_mac.LAUNCHES["gpq_matmul"]
+        traced, launched = traced_generate(eng, prompts, LM_GEN)
         _, pre_ms = host_ms(lambda eng=eng: eng._prefill(prompts))
         dec_ms = (total_ms - pre_ms) / (LM_GEN - 1)
-        if toks.shape != (LM_BATCH, LM_GEN) or toks.max() >= cfg.vocab_size:
-            raise AssertionError(f"{mode}: bad tokens {toks.shape}")
+        if toks.shape != (LM_BATCH, LM_GEN) or toks.max() >= cfg.vocab_size \
+                or not np.array_equal(traced, toks):
+            raise AssertionError(f"{mode}: bad tokens {toks.shape}, or "
+                                 "other tokens in the traced run")
         want = per_step * LM_GEN if mode == "cim-kernel" else 0
         if launched != want:
-            raise AssertionError(f"{mode}: {launched} B1 launches in "
-                                 f"generate, want {want}")
+            raise AssertionError(f"{mode}: {launched} B1 kernels in the "
+                                 f"traced generate, want {want}")
         if mode == "cim-kernel":
             gen_launches = launched
             if not np.array_equal(toks[:, :LM_SCAN_STEPS + 1], kern_toks):
@@ -1427,6 +1429,30 @@ def profile_window(tag: str, what: str, fn):
     for ms, count, key in rows[:10]:
         log(f"[{tag}]   {ms:9.4f} ms {100 * ms / busy:5.1f}% "
             f"x{count:<4d} {key[:100]}")
+
+
+# B1 as a device trace names it (perfbench's macro_roofline reads the same).
+B1_TRACE_NAME = re.compile(r"plane_mma_kernel.*BitPlanes.*Flash")
+
+
+def traced_generate(eng, prompts, n: int):
+    """``eng.generate(prompts, n)`` under torch.profiler: its tokens and
+    the B1 kernels the card ran, counted by name in the device trace. A
+    graphed engine's replays run B1 from the graph and call no wrapper,
+    so ``cim_mac.LAUNCHES`` sees only the prefill and the capture; the
+    trace sees every kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        toks = eng.generate(prompts, n)
+        torch.cuda.synchronize()
+    return toks, sum(ev.device_type() == DeviceType.CUDA
+                     and B1_TRACE_NAME.search(ev.name()) is not None
+                     for ev in prof.profiler.kineto_results.events())
 
 
 def lm_profile(planned, cfg, prompts):
@@ -2017,6 +2043,7 @@ def phase_whisper():
 def phase_vlm():
     """internvl2-2b's frontend stub and text serving through B1 (see the
     module docstring). Returns its kernels-line entry."""
+    import numpy as np
     import torch
 
     from repro_torch.core import engine
@@ -2080,17 +2107,19 @@ def phase_vlm():
     eng = ServeEngine(planned, cfg_k, max_len=VLM_TEXT + VLM_GEN + 1,
                       batch=VLM_BATCH)
     eng.generate(toks, 2)  # warm
-    cim_mac.LAUNCHES.clear()
     out, total_ms = host_ms(lambda: eng.generate(toks, VLM_GEN))
-    gen_launches = cim_mac.LAUNCHES["gpq_matmul"]
+    traced, gen_launches = traced_generate(eng, toks, VLM_GEN)
     if out.shape != (VLM_BATCH, VLM_GEN) or out.max() >= cfg_k.vocab_size \
+            or not np.array_equal(traced, out) \
             or gen_launches != per_fwd * VLM_GEN:
-        raise AssertionError(f"generate: tokens {out.shape}, "
-                             f"{gen_launches} B1 launches")
+        raise AssertionError(f"generate: tokens {out.shape} (the traced "
+                             f"run's equal: {np.array_equal(traced, out)}), "
+                             f"{gen_launches} B1 kernels traced")
     log(f"[vlm] ServeEngine.generate on text, cim-kernel, batch "
         f"{VLM_BATCH}, prompt {VLM_TEXT}, {VLM_GEN} new tokens: "
         f"{total_ms:.2f} ms, {VLM_BATCH * VLM_GEN / total_ms * 1e3:.2f} "
-        f"tokens/s, {gen_launches} B1 launches (host clock)")
+        f"tokens/s (host clock); {gen_launches} B1 kernels in a traced "
+        f"run's device trace")
     caches = transformer.init_caches(cfg_k, VLM_BATCH, VLM_TEXT + 2,
                                      device="cuda")
     with torch.no_grad():
@@ -2296,7 +2325,9 @@ def serve_modes(tag: str, cfg_of, served: dict, prompts, per_step: int,
     """ServeEngine.generate under fp, cim-exact and cim-kernel on the host
     clock: ``served[mode]`` is (params, plan flag). The cim-kernel run
     launches B1 ``per_step`` times a step and its first tokens equal
-    ``check_toks``. Returns (tokens/s per mode, its B1 launches)."""
+    ``check_toks``. Returns (tokens/s per mode, its B1 launches). Its
+    engines (MoE, recurrent) step eagerly, so ``cim_mac.LAUNCHES`` sees
+    every launch (a graphed engine's replays call no wrapper)."""
     import numpy as np
 
     from repro_torch.kernels import cim_mac
@@ -3444,37 +3475,40 @@ def phase_shard(card: str):
             raise AssertionError(f"placement {d.placements} (want "
                                  f"{sh.placements()}), local {t.shape} on "
                                  f"{t.device}, global {d.shape}")
-    calls = []  # (step, B1 launches, resolutions): prefill, each decode
+    calls = []  # (step, resolutions): prefill, each decode
 
     def counted(step, fn):
         def run(*args):
-            cim_mac.LAUNCHES.clear()
             with dispatch.record_resolutions() as res:
                 out = fn(*args)
-            calls.append((step, cim_mac.LAUNCHES[kern.name],
-                          collections.Counter((r.key.variant, r.key.backend)
-                                              for r in res)))
+            calls.append((step, collections.Counter(
+                (r.key.variant, r.key.backend) for r in res)))
             return out
         return run
 
     prefill, decode = eng._prefill, eng._decode_step
     eng._prefill = counted("prefill", prefill)
     eng._decode_step = counted("decode", decode)
-    cim_mac.LAUNCHES.clear()
     got, mesh_ms = host_ms(lambda: eng.generate(prompts, LM_GEN))
     eng._prefill, eng._decode_step = prefill, decode
-    gen_launches = sum(n for _, n, _ in calls)
-    if not np.array_equal(got, want):
-        raise AssertionError(f"mesh tokens {got.tolist()} != mesh-free "
-                             f"tokens {want.tolist()}")
-    bad = [(i, step, n, dict(r)) for i, (step, n, r) in enumerate(calls)
-           if n != per_step or r != {("p8t", "cuda"): per_step}]
-    if [step for step, _, _ in calls] != (
-            ["prefill"] + ["decode"] * (LM_GEN - 1)) or bad:
-        raise AssertionError(f"{len(calls)} counted steps; off: {bad[:3]}")
+    # The B1 kernels the card ran, from a device trace (the engine's
+    # replays call no wrapper to count on the host).
+    traced, gen_launches = traced_generate(eng, prompts, LM_GEN)
+    if not (np.array_equal(got, want) and np.array_equal(traced, want)):
+        raise AssertionError(f"mesh tokens {got.tolist()} (traced "
+                             f"{traced.tolist()}) != mesh-free tokens "
+                             f"{want.tolist()}")
+    bad = [(i, step, dict(r)) for i, (step, r) in enumerate(calls)
+           if r != {("p8t", "cuda"): per_step}]
+    if [step for step, _ in calls] != (
+            ["prefill"] + ["decode"] * (LM_GEN - 1)) or bad \
+            or gen_launches != per_step * LM_GEN:
+        raise AssertionError(f"{len(calls)} counted steps; off: "
+                             f"{bad[:3]}; {gen_launches} B1 kernels traced")
+    # The step run eagerly (a graphed engine's replay makes no kernel call
+    # on the host to record).
     with torch.no_grad(), capture_kernel_operands() as dec:
-        eng._decode_step(torch.from_numpy(got[:, -1]).cuda(),
-                         LM_PROMPT + LM_GEN - 1)
+        eng._step(torch.from_numpy(got[:, -1]).cuda(), LM_PROMPT + LM_GEN - 1)
     mesh_ops = [(f"decode {p}", x, w) for p, (_, x, w, _) in zip(
         LM_PROJECTIONS, dec)]
     mesh_err = _b1_equal_plain(mesh_ops, spec, "shard")
@@ -3483,10 +3517,11 @@ def phase_shard(card: str):
         f"{LM_GEN} tokens == the mesh-free engine's; {len(placed)} planned "
         f"tensors placed as planned_param_shardings gives (DTensor, NCCL "
         f"group of one), each local shard the whole tensor on the card; "
-        f"{per_step} B1 launches and (p8t, cuda) resolutions in the "
-        f"prefill and each of {len(calls) - 1} decode steps ({gen_launches} "
-        f"in all); generate {mesh_ms:.2f} ms with the mesh (steps "
-        f"counted), {free_ms:.2f} ms without (host clock)")
+        f"{per_step} (p8t, cuda) resolutions in the prefill and each of "
+        f"{len(calls) - 1} decode steps, {gen_launches} B1 kernels in a "
+        f"traced generate's device trace; generate {mesh_ms:.2f} ms with "
+        f"the mesh (steps counted), {free_ms:.2f} ms without (host "
+        f"clock)")
     mesh_t = b1_timings(mesh_ops, spec, cfg_k.n_layers, tag="shard-timing")
     del eng, dec, mesh_ops
     torch.cuda.empty_cache()

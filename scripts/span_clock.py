@@ -9,6 +9,8 @@ prints one JSON line:
 
   spans        each ``repro_torch.`` span's count in the window
   macro_spans  ``engine.macro`` spans; ``b1_kernels`` the macro kernels
+               (a replayed decode graph launches its B1 kernels with no
+               span on the host: only the prefill's match there)
   late         indices i at which the i-th macro kernel starts before the
                i-th ``engine.macro`` span (the spans and the kernels
                share the profiler's clock, so none should)

@@ -36,7 +36,9 @@ or 64; None or 0 picks it by N, as before), the block an autotuned pin
 fixes. Any other value raises, on either device.
 
 ``LAUNCHES`` counts kernel launches by kernel name; it moves only where
-a kernel is launched.
+a wrapper launches a kernel. A launch into a CUDA graph's capture counts
+once, there; the graph's replays call no wrapper and move nothing (a
+device trace counts the kernels a replay runs).
 """
 
 from __future__ import annotations

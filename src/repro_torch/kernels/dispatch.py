@@ -56,7 +56,8 @@ kernel does not take (``KernelSpecError``: B1, B2 and B3 at act_bits >
 8 or over 32 active rows) as "spec-fallback". Every other error
 (operand faults, build and launch errors) propagates.
 ``record_resolutions`` lets callers assert exactly which implementation
-ran.
+ran; a captured CUDA graph's calls reach its listeners on each replay
+(``held_resolutions``, ``renotify``).
 
 An implementation is ``fn(x_codes, w_codes, spec, *, generator=None,
 planes=None) -> [M, N] float32`` in integer-domain macro units (plus
@@ -218,6 +219,28 @@ def record_resolutions() -> Iterator[list[Resolution]]:
         yield log
     finally:
         _LISTENERS.remove(log.append)
+
+
+@contextlib.contextmanager
+def held_resolutions() -> Iterator[list[Resolution]]:
+    """Capture every dispatch decision made inside the context and keep
+    it from the other listeners: for calls recorded now and run later (a
+    CUDA graph's capture), whose runner reports them with ``renotify``
+    each time they run."""
+    log: list[Resolution] = []
+    outer = _LISTENERS[:]
+    _LISTENERS[:] = [log.append]
+    try:
+        yield log
+    finally:
+        _LISTENERS[:] = outer
+
+
+def renotify(log: list[Resolution]) -> None:
+    """Report decisions that ``held_resolutions`` captured to the
+    listeners, as when the calls they route run."""
+    for res in log:
+        _notify(res)
 
 
 def _notify(res: Resolution) -> None:

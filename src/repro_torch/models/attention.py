@@ -11,9 +11,10 @@ Cache layouts:
                 offsets survive the ring indexing).
 Decode is one query token against the cache; prefill writes the cache in
 bulk and runs the masked quadratic core. The port writes a cache in
-place (slice assignment into the caller's tensors) and returns the same
-``KVCache``; the JAX package returns updated copies. Every decode step
-writes all B rows at the one position ``pos``, as the JAX package does.
+place (slice assignment into the caller's tensors, ``index_copy_`` at a
+decode step's device position) and returns the same ``KVCache``; the JAX
+package returns updated copies. Every decode step writes all B rows at
+the one position ``pos``, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -239,20 +240,42 @@ def prefill_cache(
     return _out_proj(params, out, cfg, policy), cache
 
 
+def as_position(pos: int | torch.Tensor, device) -> torch.Tensor:
+    """A decode position as a 0-d int64 tensor on ``device``: a Python int
+    is filled in on the device (a kernel, not a copy from the host), a
+    tensor is taken as it is."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.long)
+    return torch.full((), pos, dtype=torch.long, device=device)
+
+
+def _write_slot(cache: torch.Tensor, slot: torch.Tensor,
+                row: torch.Tensor) -> None:
+    """``cache[:, slot] = row`` at a 0-d device index, with no read of it
+    on the host; float8 rows are copied as bytes (``index_copy_`` takes
+    no float8)."""
+    if cache.element_size() == 1:
+        cache, row = cache.view(torch.uint8), row.view(torch.uint8)
+    cache.index_copy_(1, slot.view(1), row[:, None])
+
+
 def decode_step(
     params: dict,
     x: torch.Tensor,  # [B, 1, D]
     cfg: ModelConfig,
     cache: KVCache,
-    pos: int,  # position of the new token
+    pos: int | torch.Tensor,  # position of the new token
     *,
     window: int = 0,
     policy: CIMPolicy | None = None,
 ) -> tuple[torch.Tensor, KVCache]:
     """One decode step against the cache (full or ring), written in
-    place."""
+    place. ``pos`` is a Python int or a 0-d integer tensor on x's device;
+    the step reads it only on the device, so the same step runs captured
+    in a CUDA graph with the position in a buffer."""
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    pos = as_position(pos, x.device)
+    positions = pos.view(1, 1).expand(b, 1)
     q, k, v = _project_qkv(params, x, cfg, policy)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
@@ -260,15 +283,15 @@ def decode_step(
     c = cache.k.shape[1]
     slots = torch.arange(c, device=x.device)
     if window and c == window:
-        slot = pos % window
+        slot = torch.remainder(pos, window)
         # Slots 0..pos are valid until the ring wraps; afterwards every
         # slot holds one of the last `window` tokens.
-        valid = (slots < pos + 1) | (pos + 1 >= c)
+        valid = (slots <= pos) | (pos >= c - 1)
     else:
-        slot = min(pos, c - 1)  # the JAX package's update clamps
+        slot = torch.clamp(pos, max=c - 1)  # the JAX package's update clamps
         valid = slots <= pos
-    cache.k[:, slot] = to_cache_dtype(k[:, 0], cache.k.dtype)
-    cache.v[:, slot] = to_cache_dtype(v[:, 0], cache.v.dtype)
+    _write_slot(cache.k, slot, to_cache_dtype(k[:, 0], cache.k.dtype))
+    _write_slot(cache.v, slot, to_cache_dtype(v[:, 0], cache.v.dtype))
     out = _gqa_core(q, cache.k, cache.v, valid[None, None, None, None, :])
     return _out_proj(params, out, cfg, policy), cache
 

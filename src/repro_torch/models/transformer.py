@@ -233,7 +233,8 @@ def _memory_kv(lp, memory, cfg, policy):
 
 
 def _layer(lp, x, cfg: ModelConfig, li: int, *, policy, positions=None,
-           cache=None, pos: int | None = None, mkv=None, generator=None):
+           cache=None, pos: int | torch.Tensor | None = None, mkv=None,
+           generator=None):
     """One decoder layer: the full forward (``cache`` None), the prefill
     (a cache, ``pos`` None) or one decode step at ``pos``. Returns (x, the
     layer's new cache or None, its MoE aux loss or None). ``generator``
@@ -506,13 +507,17 @@ def prefill(
 
 
 def decode_step(
-    params: Params, token: torch.Tensor, pos: int, caches: dict,
-    cfg: ModelConfig, *, memory: torch.Tensor | None = None,
+    params: Params, token: torch.Tensor, pos: int | torch.Tensor,
+    caches: dict, cfg: ModelConfig, *, memory: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """One serving step: the token [B] at position ``pos`` -> next-token
-    logits [B, V], the caches updated in place. With ``memory`` (the
-    encoder output) every layer projects its cross-attention K/V anew in
-    each step, as the JAX package does."""
+    logits [B, V], the caches updated in place. ``pos`` is an int or a
+    0-d integer tensor on the token's device, which attention reads only
+    on the device (learned positions, in no graphed engine, slice by it
+    on the host): with the token and the position in fixed buffers, an
+    all-attention step runs captured in a CUDA graph (``ServeEngine``).
+    With ``memory`` (the encoder output) every layer projects its
+    cross-attention K/V anew in each step, as the JAX package does."""
     policy = cfg.cim
     x = _add_pos(params, _embed(params, token[:, None], cfg), cfg, pos)
     for li, lp, path in _layers(params, cfg):

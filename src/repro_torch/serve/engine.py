@@ -26,6 +26,16 @@ tensor-parallel over the model axis on its output-channel dim, the rest
 replicated (``self.placed`` holds the DTensors). The steps compute on
 each tensor's local shard, which at world size 1 is the whole tensor; a
 mesh of more devices raises ``NotImplementedError`` (one card).
+
+One CUDA graph per decode step: where ``graphs_decode`` holds (a CUDA
+device, attention layers with dense MLPs, a noiseless policy) the engine
+runs its first decode step eagerly and captures it into a
+``torch.cuda.CUDAGraph``, then replays that graph for every later step
+with the token and the position copied into its input buffers. The
+graph runs the eager step's kernels in the same order, so the tokens are
+the eager engine's bit for bit; a replay only skips the host's work
+between launches. Every other engine (MoE, recurrent, encoder-decoder,
+noisy, the CPU) runs each step eagerly.
 """
 
 from __future__ import annotations
@@ -39,7 +49,69 @@ from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine as cim_engine
 from repro_torch.distributed import sharding
-from repro_torch.models import transformer
+from repro_torch.kernels import dispatch
+from repro_torch.models import attention, transformer
+
+
+def graphs_decode(cfg: ModelConfig, device) -> bool:
+    """Whether ``ServeEngine`` runs ``cfg``'s decode steps as one captured
+    CUDA graph on ``device``: a CUDA device, a decoder whose every layer
+    is attention with a dense MLP (a MoE layer reads its routing on the
+    host; recurrent and encoder-decoder steps stay eager), and a
+    noiseless operating point (no generator is drawn)."""
+    return (torch.device(device).type == "cuda"
+            and not cfg.is_encoder_decoder
+            and not cfg.cim.cim.noisy
+            and all(cfg.layer_kind(i) in ("attn", "attn_local")
+                    and not cfg.layer_uses_moe(i)
+                    for i in range(cfg.n_layers)))
+
+
+class DecodeGraph:
+    """A decode step run as one CUDA graph: captured at the first call,
+    replayed at every later one.
+
+    The first call runs ``step(tok, pos)`` eagerly on a side stream, as
+    capture asks (its logits are that call's result), then captures the
+    same step on fixed token and position buffers. A later call copies
+    its token and position in and replays the graph; its ``step`` is not
+    run, since the graph holds the captured step's buffers, the caches
+    among them. The dispatch decisions made at capture reach
+    ``dispatch``'s listeners at each replay instead, as an eager step's
+    do. A replay calls no kernel wrapper, so ``cim_mac.LAUNCHES`` counts
+    the capture's launches once and no replay's: the replayed kernels
+    show in a device trace.
+    """
+
+    def __init__(self):
+        self.graph: torch.cuda.CUDAGraph | None = None
+
+    def __call__(self, step, tok: torch.Tensor, pos: int) -> torch.Tensor:
+        if self.graph is None:
+            with tracing.span("repro_torch.serve.decode_capture"):
+                return self._capture(step, tok, pos)
+        with tracing.span("repro_torch.serve.decode_graph"):
+            self.tok.copy_(tok)
+            self.pos.fill_(pos)
+            self.graph.replay()
+            dispatch.renotify(self.resolutions)
+            return self.logits.clone()  # the next replay overwrites it
+
+    def _capture(self, step, tok: torch.Tensor, pos: int) -> torch.Tensor:
+        self.tok = tok.clone()
+        self.pos = attention.as_position(pos, tok.device)
+        main = torch.cuda.current_stream(tok.device)
+        side = torch.cuda.Stream(tok.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            logits = step(self.tok, self.pos)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with dispatch.held_resolutions() as self.resolutions, \
+                torch.cuda.graph(graph):
+            self.logits = step(self.tok, self.pos)
+        self.graph = graph
+        return logits
 
 
 class ServeEngine:
@@ -80,6 +152,8 @@ class ServeEngine:
             cfg, batch, max_len, dtype=getattr(torch, cfg.activation_dtype),
             device=self.device,
         )
+        self.decode_graph = DecodeGraph() if graphs_decode(cfg, device) \
+            else None
 
     @classmethod
     def restore_planned(
@@ -115,10 +189,16 @@ class ServeEngine:
 
     @torch.no_grad()
     def _decode_step(self, tok: torch.Tensor, pos: int) -> torch.Tensor:
-        """One decode step of the whole batch at position ``pos``."""
+        """One decode step of the whole batch at position ``pos``: the
+        engine's graph where it has one, else eager."""
         with tracing.span("repro_torch.serve.decode_step"):
-            logits, self.caches = transformer.decode_step(
-                self.params, tok, pos, self.caches, self.cfg)
+            if self.decode_graph is not None:
+                return self.decode_graph(self._step, tok, pos)
+            return self._step(tok, pos)
+
+    def _step(self, tok: torch.Tensor, pos) -> torch.Tensor:
+        logits, self.caches = transformer.decode_step(
+            self.params, tok, pos, self.caches, self.cfg)
         return logits
 
     def generate(self, prompts: torch.Tensor, n_tokens: int) -> np.ndarray:

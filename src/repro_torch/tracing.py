@@ -23,6 +23,10 @@ The spans (every name starts with ``repro_torch.``):
   serve.prefill       ``ServeEngine._prefill``: one prefill pass
   serve.decode_step   ``ServeEngine._decode_step``: one decode pass (the
                       ``ContinuousBatcher`` steps through it too)
+  serve.decode_capture  a graphed engine's first decode pass: the step
+                      run eagerly, then captured as a CUDA graph
+  serve.decode_graph  a later decode pass of that engine: one replay of
+                      the graph, inside ``serve.decode_step``
   resnet.forward      ``models.resnet.forward``: one forward
   resnet.im2col       ``models.resnet.im2col``: the pad and the unfold
   engine.quantize     a quantized backend's activation quantizer
@@ -33,7 +37,8 @@ The spans (every name starts with ``repro_torch.``):
 
 A pass's parent is the request (``serve.generate``); the engine's three
 spans are the children of the pass, or of ``resnet.forward``, that makes
-the macro call.
+the macro call. A replayed graph makes no macro call on the host, so a
+``serve.decode_graph`` pass has no engine spans.
 
 A span is a plain host op (``_RecordFunctionFast``), not a
 ``record_function``: the profiler mirrors every ``record_function`` onto
