@@ -6,7 +6,8 @@ per-call knobs. ``ModelConfig`` describes one LM architecture; each
 ported architecture is a module ``repro_torch/configs/<id>.py`` with a
 ``CONFIG`` (the published widths and depth) and a ``SMOKE`` (a narrow
 same-family configuration for CPU tests). ``get_config`` maps ``--arch``
-ids to those modules; the field values equal the JAX package's.
+ids to those modules; the field values equal the JAX package's, whose
+record lacks Granite's four multipliers (neutral in every module here).
 """
 
 from __future__ import annotations
@@ -99,6 +100,16 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # Granite's scalars on the decoder's residual and attention paths,
+    # each applied only where it is not neutral (the encoder of an
+    # encoder-decoder takes none): x = embed(ids) * embedding_multiplier;
+    # scores = q.k * attention_multiplier (0: head_dim ** -0.5);
+    # x = x + branch * residual_multiplier; logits = head(x) /
+    # logits_scaling. The JAX package has none of them.
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     # Layer pattern, cycled across the stack: gemma3 = 5 local + 1
     # global, jamba = 1 attn + 7 mamba, rwkv = all 'rwkv', dense = all
     # 'attn'.
@@ -152,6 +163,11 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
+
+    @property
+    def attn_scale(self) -> float:
+        """The factor on the attention scores."""
+        return self.attention_multiplier or self.head_dim ** -0.5
 
     def layer_kind(self, i: int) -> LayerKind:
         return self.layer_pattern[i % len(self.layer_pattern)]

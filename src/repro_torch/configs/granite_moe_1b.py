@@ -1,6 +1,14 @@
 """granite-moe-1b-a400m [moe]: 24L d=1024 16H (GQA kv=8) d_ff=512
 (expert) vocab=49155; 32 experts top-8, tied embeddings.
-[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]"""
+[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]
+
+The record mirrors the JAX package's, which has no place for Granite's
+four multipliers (embedding 12, attention 1/64, residual 0.22, logits
+1/6): CONFIG and SMOKE leave them neutral, and the parity tests hold them
+to the JAX package. The published model is the benchmark's
+``perfbench/configs/granite-moe-1b.json``, which its adapter turns into a
+``ModelConfig`` with the multipliers and dispatch='ragged' (each expert
+through the macro on its own tokens only)."""
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 

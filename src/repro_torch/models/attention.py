@@ -94,13 +94,14 @@ def _gqa_core(
     k: torch.Tensor,  # [B, T, KVH, hd]
     v: torch.Tensor,  # [B, T, KVH, hd]
     mask: torch.Tensor | None,  # broadcastable to [B, G, R, S, T], bool
+    scale: float | None = None,  # on the scores; None: hd ** -0.5
 ) -> torch.Tensor:
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, h // kvh, hd)
     scores = torch.einsum(
         "bsgrh,btgh->bgrst", qg.to(torch.float32), k.to(torch.float32)
-    ) * hd**-0.5
+    ) * (hd**-0.5 if scale is None else scale)
     if mask is not None:
         scores = scores.masked_fill(~mask, -1e30)
     probs = torch.softmax(scores, dim=-1)
@@ -116,17 +117,18 @@ def _flash_core(
     q_positions: torch.Tensor,  # [S] absolute positions of the queries
     window: int = 0,
     block: int = 1024,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Online-softmax (flash) attention: a loop over KV blocks that never
     materializes the [S, T] score matrix. Equal to ``_gqa_core`` up to
     float32 summation order. Causality and the window come from absolute
-    positions."""
+    positions; ``scale`` (None: hd ** -0.5) multiplies q in its dtype."""
     b, s, h, hd = q.shape
     t = k.shape[1]
     kvh = k.shape[2]
     rep = h // kvh
-    qg = q.reshape(b, s, kvh, rep, hd) * torch.tensor(hd**-0.5,
-                                                      dtype=q.dtype)
+    scale = hd**-0.5 if scale is None else scale
+    qg = q.reshape(b, s, kvh, rep, hd) * torch.tensor(scale, dtype=q.dtype)
     m = torch.full((b, kvh, rep, s), -torch.inf, device=q.device)
     l = torch.zeros((b, kvh, rep, s), device=q.device)
     acc = torch.zeros((b, kvh, rep, s, hd), device=q.device)
@@ -159,11 +161,12 @@ def _flash_core(
 FLASH_THRESHOLD = 4096
 
 
-def _self_attention_core(q, k, v, *, positions, window, s):
+def _self_attention_core(q, k, v, *, positions, window, s, scale):
     if s > FLASH_THRESHOLD:
-        return _flash_core(q, k, v, q_positions=positions, window=window)
+        return _flash_core(q, k, v, q_positions=positions, window=window,
+                           scale=scale)
     mask = causal_mask(s, s, window=window, device=q.device)
-    return _gqa_core(q, k, v, mask[None, None, None])
+    return _gqa_core(q, k, v, mask[None, None, None], scale)
 
 
 def causal_mask(s: int, t: int, *, offset: int = 0, window: int = 0,
@@ -202,7 +205,7 @@ def attend_full(
     q = constrain_query(common.apply_rope(q, positions, cfg.rope_theta))
     k = common.apply_rope(k, positions, cfg.rope_theta)
     out = _self_attention_core(q, k, v, positions=positions[0],
-                               window=window, s=s)
+                               window=window, s=s, scale=cfg.attn_scale)
     return _out_proj(params, out, cfg, policy, generator)
 
 
@@ -236,7 +239,7 @@ def prefill_cache(
         cache.k[:, :s] = kc
         cache.v[:, :s] = vc
     out = _self_attention_core(q, k, v, positions=positions[0],
-                               window=window, s=s)
+                               window=window, s=s, scale=cfg.attn_scale)
     return _out_proj(params, out, cfg, policy), cache
 
 
@@ -292,7 +295,8 @@ def decode_step(
         valid = slots <= pos
     _write_slot(cache.k, slot, to_cache_dtype(k[:, 0], cache.k.dtype))
     _write_slot(cache.v, slot, to_cache_dtype(v[:, 0], cache.v.dtype))
-    out = _gqa_core(q, cache.k, cache.v, valid[None, None, None, None, :])
+    out = _gqa_core(q, cache.k, cache.v, valid[None, None, None, None, :],
+                    cfg.attn_scale)
     return _out_proj(params, out, cfg, policy), cache
 
 
@@ -313,8 +317,8 @@ def cross_attend(
                             generator=generator)
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k, v = memory_kv
-    return _out_proj(params, _gqa_core(q, k, v, None), cfg, policy,
-                     generator)
+    return _out_proj(params, _gqa_core(q, k, v, None, cfg.attn_scale), cfg,
+                     policy, generator)
 
 
 def encode_memory_kv(

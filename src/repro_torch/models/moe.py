@@ -7,13 +7,27 @@ are dropped, and the experts run as three einsums over a [G, E, C, d]
 buffer. dispatch='ragged' sorts the choices by expert and runs one matmul
 per contiguous expert segment (no drops). The router is always digital.
 
-CIM path (any mode but 'fp', ``policy.apply_to_experts``): a masked loop
-over every expert through the macro, E/k times the routed compute, for
-accuracy studies. A bank planned by ``engine.plan_params`` ([E, K, N]
-codes) is read one expert at a time as a view (``PlannedWeights.layer``):
-the JAX package indexes the planned bank as an array there and fails, so
-its served path is its unplanned one, which plans the same [K, N] slice
-per call with the same per-column scales.
+CIM path (any mode but 'fp', ``policy.apply_to_experts``). Under the
+default dispatch='grouped' it is the JAX package's masked loop over every
+expert through the macro on every token, E/k times the routed compute,
+for accuracy studies. Under dispatch='ragged' the port departs from the
+JAX package, which loops there too: each expert runs through the macro
+on the tokens routed to it and on no others, with no drops (the ragged
+path's sort by expert, the segment sizes read on the host, three macro
+calls per expert with tokens, none for an expert without). That is the
+sparse model a deployment serves, and each expert's per-tensor
+activation quantizer then takes its range over its own tokens only. The
+two give each token its k weighted outputs added in expert order into
+the activation-dtype sum, so they agree bit for bit where every token
+goes to every expert. A bank planned by ``engine.plan_params``
+([E, K, N] codes) is read one expert at a time as a view
+(``PlannedWeights.layer``): the JAX package indexes the planned bank as
+an array there and fails, so its served path is its unplanned one, which
+plans the same [K, N] slice per call with the same per-column scales.
+
+Spans: ``repro_torch.moe.route`` over the router, the sort and host read,
+the gathers and the combine (never over an expert's projections), and
+``repro_torch.moe.expert`` over each expert's three macro calls.
 
 Shared experts (qwen2-moe): one fused SwiGLU of width d_shared with a
 sigmoid gate.
@@ -26,6 +40,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import CIMPolicy, MoEConfig, ModelConfig
 from repro_torch.core.engine import PlannedWeights
 from repro_torch.distributed import sharding
@@ -174,36 +189,56 @@ def _dispatch_grouped(params, x2, top_p, top_e, mo: MoEConfig, dtype):
     return out.reshape(t, d)
 
 
-def _dispatch_ragged(params, x2, top_p, top_e, mo: MoEConfig):
-    """Exact routing without drops: the (token, choice) pairs sorted by
-    expert (stable), one SwiGLU per contiguous expert segment (the JAX
-    package's ``lax.ragged_dot``), then each token's k weighted outputs
-    added in sorted order, one rounding per add, as the JAX package's
-    scatter-add runs (``index_add_`` rounds otherwise in bfloat16)."""
-    t, d = x2.shape
-    k = mo.top_k
-    dtype = x2.dtype
-    flat_e = top_e.reshape(-1)  # [T*k]
-    order = torch.argsort(flat_e, stable=True)
-    xs = x2[order // k]  # [T*k, d]
-    sizes = torch.bincount(flat_e, minlength=mo.n_experts).tolist()
-    banks = {n: _bank(params, n, dtype) for n in ("gate", "up", "down")}
+def _dispatch_ragged(x2, top_p, top_e, mo: MoEConfig, swiglu):
+    """Exact routing without drops: the (token, choice) pairs stable-sorted
+    by expert, the segment sizes read on the host, ``swiglu(e, seg)`` on
+    each non-empty contiguous segment (M = its tokens; the JAX package's
+    ``lax.ragged_dot`` on the digital path), the outputs weighted by
+    ``top_p``, then each token's k of them added in sorted (expert) order,
+    one rounding per add, as the JAX package's scatter-add runs
+    (``index_add_`` rounds otherwise in bfloat16) and as
+    ``_experts_dense_cim`` adds them."""
+    t, k = top_e.shape
+    with tracing.span("repro_torch.moe.route"):
+        flat_e = top_e.reshape(-1)  # [T*k]
+        order = torch.argsort(flat_e, stable=True)
+        sizes = torch.bincount(flat_e, minlength=mo.n_experts).tolist()
+        xs = x2[order // k]  # [T*k, d]
     ys, start = [], 0
     for e, size in enumerate(sizes):
-        seg = xs[start:start + size]
+        if size:
+            ys.append(swiglu(e, xs[start:start + size]))
         start += size
-        h = (common.silu(_dot("td,df->tf", seg, banks["gate"][e]))
-             * _dot("td,df->tf", seg, banks["up"][e]))
-        ys.append(_dot("tf,fd->td", h, banks["down"][e]))
-    contrib = torch.cat(ys) * top_p.reshape(-1)[order][:, None]
-    rank = torch.argsort(order)  # sorted position of each (token, choice)
-    contrib = contrib[rank].reshape(t, k, d)
-    first = torch.argsort(rank.reshape(t, k), dim=1)  # add order per token
-    rows = torch.arange(t, device=x2.device)
-    out = torch.zeros((t, d), dtype=dtype, device=x2.device)
-    for c in range(k):
-        out = out + contrib[rows, first[:, c]]
-    return out
+    with tracing.span("repro_torch.moe.route"):
+        contrib = top_p.reshape(-1)[order][:, None] * torch.cat(ys)
+        rank = torch.argsort(order)  # sorted position of each (token, choice)
+        contrib = contrib[rank].reshape(t, k, -1)
+        first = torch.argsort(rank.reshape(t, k), dim=1)  # add order per token
+        rows = torch.arange(t, device=x2.device)
+        out = torch.zeros_like(x2)
+        for c in range(k):
+            out = out + contrib[rows, first[:, c]]
+        return out
+
+
+def _swiglu_digital(banks: dict, e: int, x):
+    """Expert ``e``'s SwiGLU on x [M, d] from the dense banks."""
+    h = (common.silu(_dot("td,df->tf", x, banks["gate"][e]))
+         * _dot("td,df->tf", x, banks["up"][e]))
+    return _dot("tf,fd->td", h, banks["down"][e])
+
+
+def _swiglu_cim(params, e: int, x, policy, generator=None):
+    """Expert ``e``'s SwiGLU on x [M, d], its three projections through
+    the macro (the planned bank's view): one ``moe.expert`` span."""
+    with tracing.span("repro_torch.moe.expert"):
+        g = common.linear_apply({"w": expert(params["gate"], e)}, x, policy,
+                                generator=generator)
+        u = common.linear_apply({"w": expert(params["up"], e)}, x, policy,
+                                generator=generator)
+        return common.linear_apply({"w": expert(params["down"], e)},
+                                   common.silu(g) * u, policy,
+                                   generator=generator)
 
 
 def _experts_dense_cim(params, x2, top_p, top_e, mo: MoEConfig, policy,
@@ -216,14 +251,8 @@ def _experts_dense_cim(params, x2, top_p, top_e, mo: MoEConfig, policy,
     zero = torch.zeros((), dtype=top_p.dtype, device=x2.device)
     for e in range(mo.n_experts):
         w_e = torch.sum(torch.where(top_e == e, top_p, zero), dim=-1)  # [T]
-        g = common.linear_apply({"w": expert(params["gate"], e)}, x2, policy,
-                                generator=generator)
-        u = common.linear_apply({"w": expert(params["up"], e)}, x2, policy,
-                                generator=generator)
-        y = common.linear_apply({"w": expert(params["down"], e)},
-                                common.silu(g) * u, policy,
-                                generator=generator)
-        out = out + w_e[:, None] * y
+        out = out + w_e[:, None] * _swiglu_cim(params, e, x2, policy,
+                                               generator)
     return out
 
 
@@ -238,15 +267,27 @@ def moe_apply(
     mo = cfg.moe
     b, s, d = x.shape
     x2 = x.reshape(b * s, d)
-    top_p, top_e, metrics = _router(params, x2, mo, generator=generator)
+    with tracing.span("repro_torch.moe.route"):
+        top_p, top_e, metrics = _router(params, x2, mo, generator=generator)
 
-    if policy is not None and policy.mode != "fp" and policy.apply_to_experts:
+    cim = (policy is not None and policy.mode != "fp"
+           and policy.apply_to_experts)
+    if mo.dispatch == "ragged":
+        if cim:
+            def swiglu(e, seg):
+                return _swiglu_cim(params, e, seg, policy, generator)
+        else:
+            banks = {n: _bank(params, n, x2.dtype)
+                     for n in ("gate", "up", "down")}
+
+            def swiglu(e, seg):
+                return _swiglu_digital(banks, e, seg)
+        out = _dispatch_ragged(x2, top_p, top_e, mo, swiglu)
+    elif cim:
         out = _experts_dense_cim(params, x2, top_p, top_e, mo, policy,
                                  generator)
-    elif mo.dispatch == "grouped":
+    else:
         out = _dispatch_grouped(params, x2, top_p, top_e, mo, x2.dtype)
-    else:  # 'ragged'
-        out = _dispatch_ragged(params, x2, top_p, top_e, mo)
 
     if mo.d_shared:
         sh = common.mlp_apply(params["shared"], x2, "silu", policy)

@@ -277,11 +277,12 @@ def _layer(lp, x, cfg: ModelConfig, li: int, *, policy, positions=None,
         if cache is not None:
             cache = cache._replace(shift_tm=s_tm.to(cache.shift_tm.dtype),
                                    state=state.to(cache.state.dtype))
-    x = x + a.to(x.dtype)
+    x = x + _residual(a.to(x.dtype), cfg)
     if mkv is not None:
         hx = common.rmsnorm_apply(lp["norm_x"], x, cfg.norm_eps)
-        x = x + attention.cross_attend(lp["xattn"], hx, mkv, cfg,
-                                       policy=policy, generator=generator)
+        x = x + _residual(attention.cross_attend(
+            lp["xattn"], hx, mkv, cfg, policy=policy, generator=generator),
+            cfg)
     h = common.rmsnorm_apply(lp["norm2"], x, cfg.norm_eps)
     aux = None
     if kind == "rwkv":
@@ -299,12 +300,22 @@ def _layer(lp, x, cfg: ModelConfig, li: int, *, policy, positions=None,
     else:
         m = common.mlp_apply(lp["mlp"], h, cfg.mlp_act, policy,
                              generator=generator)
-    return x + m.to(x.dtype), cache, aux
+    return x + _residual(m.to(x.dtype), cfg), cache, aux
+
+
+def _residual(branch: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A residual branch scaled by ``cfg.residual_multiplier`` in its
+    dtype before the add (no op at 1)."""
+    r = cfg.residual_multiplier
+    return branch if r == 1.0 else branch * r
 
 
 def _embed(params, tokens, cfg: ModelConfig):
     x = common.embedding_apply(params["embed"], tokens)
-    return x.to(getattr(torch, cfg.activation_dtype))
+    x = x.to(getattr(torch, cfg.activation_dtype))
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return x
 
 
 def _add_pos(params, x, cfg: ModelConfig, start: int = 0):
@@ -331,6 +342,8 @@ def _logits(params, x, cfg: ModelConfig, policy: CIMPolicy | None):
         en = policy.apply_to_logits if policy else False
         logits = common.linear_apply(params["lm_head"], h, policy,
                                      cim_enabled=en)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     if cfg.padded_vocab != cfg.vocab_size:
         # Vocab-pad columns never win argmax nor enter the softmax mass.
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size

@@ -27,6 +27,13 @@ The spans (every name starts with ``repro_torch.``):
                       run eagerly, then captured as a CUDA graph
   serve.decode_graph  a later decode pass of that engine: one replay of
                       the graph, inside ``serve.decode_step``
+  moe.route           ``models.moe``: the router and top-k, and under
+                      dispatch='ragged' the sort by expert, the host read
+                      of the segment sizes, the gathers and the combine;
+                      never over an expert's projections
+  moe.expert          ``models.moe``: one expert's three macro calls on
+                      its tokens (its segment under dispatch='ragged',
+                      every token in the masked loop)
   resnet.forward      ``models.resnet.forward``: one forward
   resnet.im2col       ``models.resnet.im2col``: the pad and the unfold
   engine.quantize     a quantized backend's activation quantizer
@@ -37,7 +44,8 @@ The spans (every name starts with ``repro_torch.``):
 
 A pass's parent is the request (``serve.generate``); the engine's three
 spans are the children of the pass, or of ``resnet.forward``, that makes
-the macro call. A replayed graph makes no macro call on the host, so a
+the macro call, or of the ``moe.expert`` span inside it; ``moe.route``
+is a child of the pass. A replayed graph makes no macro call on the host, so a
 ``serve.decode_graph`` pass has no engine spans.
 
 A span is a plain host op (``_RecordFunctionFast``), not a
