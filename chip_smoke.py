@@ -13,9 +13,10 @@ file; it exits non-zero without either. Phases (each one fails the run):
               kernels/csrc`` (nvcc, sm_90a, one process per source, all
               started together), with the build seconds, registers,
               static shared memory and spills per kernel entry; a spill
-              fails the run, and so does a library whose SASS
-              (cuobjdump, where one is found) has no IMMA, the tensor
-              cores' integer MMA.
+              fails the run, and so does a GPQ kernel's library whose
+              SASS (cuobjdump, where one is found) has no IMMA, the
+              tensor cores' integer MMA (the engine's periphery kernels,
+              ``csrc/periphery.cu``, are elementwise).
   3. kernel   each GPQ kernel (B1 gpq_matmul, B2 adder_tree_gpq_matmul,
               B3 cell_adc_gpq_matmul) against its plain PyTorch version
               on the card with ``torch.equal``: rows {4, 8, 16} x ADC
@@ -66,6 +67,22 @@ file; it exits non-zero without either. Phases (each one fails the run):
               timed again at cutoff 0.3, a step that is not a whole
               number of pMACs (B1's code table, B3's scaled search; B2
               has one conversion path).
+     periphery  the engine's periphery kernels (``kernels/periphery.py``)
+              on the card: ``quantize_acts`` against ``quantize_acts_plain``
+              and ``quant.quantize_acts``, ``dequant_epilogue`` against its
+              plain version and the ATen epilogue over B1's output (both
+              output dtypes), with ``torch.equal``, each call's launches
+              counted from cleared counters: a granite expert's x [4, 1024]
+              and a qwen2 decode step's [4, 4864] (one act_quant block), the
+              qwen2 prefill's [4096, 896] and [4096, 4864] (act_range
+              first), in float32, bfloat16 and float16, both quantizers,
+              and the ResNet's 14 operands (the percentile's range, their
+              plans' colsum and scale); one counted cim-kernel forward (14
+              act_quant and dequant_epilogue) whose logits equal the same
+              forward's with the ATen periphery; each kernel's time alone
+              at the granite and prefill shapes, beside its plain version,
+              the ATen ops and its byte bound (as phase 6). Phase 7 counts
+              their launches in its prefill and decode steps.
   7. lm       slice 3's path: qwen2-0.5b at its published widths and
               depth (24 layers, d_model 896, GQA 14/2 heads, d_ff 4864,
               vocab 151936; random weights from torch.Generator seed 0)
@@ -76,8 +93,11 @@ file; it exits non-zero without either. Phases (each one fails the run):
               prefill and 2 decode steps with logits equal to the same
               steps with every macro matmul forced through the scan twin;
               168 ("p8t", "cuda") resolutions and B1 launches per decode
-              step; the card against the port's CPU path at depth 2 (full
-              width, float32 activations: bfloat16 logits tie), same
+              step, and the periphery kernels' launches (act_quant and
+              dequant_epilogue each macro call, act_range before act_quant
+              over more than one block); the card against the port's CPU
+              path at depth 2 (full width, float32 activations: bfloat16
+              logits tie), same
               tokens under fp and cim-kernel;
               ServeEngine.generate at batch 4, prompt 128 (MarkovLM), 32
               new tokens under fp (planned int8), cim-exact and cim-kernel
@@ -423,10 +443,38 @@ KERNELS = (
     Kernel("cell_adc_gpq_matmul", "cell-adc",
            "src/repro/kernels/cim_mac.py:386", True, 4096 * 16),
 )
+# The engine's periphery kernels (csrc/periphery.cu) and the JAX code each
+# replaces (XLA fuses it there).
+PERI_KERNELS = {
+    "act_quant": "src/repro/core/quant.py:62",
+    "act_range": "src/repro/core/quant.py:48",
+    "dequant_epilogue": "src/repro/core/engine.py:435",
+}
+# (path, M, K, N): the activation [M, K] and the macro output's N at the
+# main paths' shapes: a granite expert's up projection and a qwen2 decode
+# step's down projection (one block), the qwen2 prefill's MLP up and down
+# projections (act_range first).
+PERI_SHAPES = (
+    ("granite expert up", 4, 1024, 512),
+    ("qwen2 decode down", 4, 4864, 896),
+    ("qwen2 prefill up", 4096, 896, 4864),
+    ("qwen2 prefill down", 4096, 4864, 896),
+)
+PERI_COLD_BYTES = 200_000_000  # past the H100's 50 MB L2
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def gpq_launches() -> collections.Counter:
+    """``cim_mac.LAUNCHES`` of the three GPQ kernels alone (the engine's
+    periphery kernels count there too)."""
+    from repro_torch.kernels import cim_mac
+
+    names = {k.name for k in KERNELS}
+    return collections.Counter(
+        {k: v for k, v in cim_mac.LAUNCHES.items() if k in names})
 
 
 def card_line() -> str:
@@ -607,7 +655,8 @@ def phase_build():
         log(f"[build] {name} SASS ({tool}): {sum(ops.values())} "
             f"instructions; " + ", ".join(f"{op} {ops[op]}"
                                           for op in SASS_OPS))
-        if ops["IMMA"] == 0:
+        # The periphery's kernels are elementwise: no tensor-core MMA.
+        if ops["IMMA"] == 0 and name in {k.name for k in KERNELS}:
             raise AssertionError(f"{name}: no IMMA in its SASS")
 
 
@@ -974,7 +1023,7 @@ def phase_variants(params, bn, batches, slice1_logits):
             lk, top1, ips = eval_mode(params, bn, batches, "cim-kernel",
                                       backend="analog")
         launches[kern.name] = cim_mac.LAUNCHES[kern.name]
-        other = sum(cim_mac.LAUNCHES.values()) - launches[kern.name]
+        other = sum(gpq_launches().values()) - launches[kern.name]
         kinds = collections.Counter(
             (r.key.variant, r.key.backend, r.source) for r in log_k)
         if kinds != {(v, "cuda", "heuristic"): want}:
@@ -1067,6 +1116,310 @@ def phase_timings(ops, spec):
             f"{rows[kern.name][0]:.4f} ({rows[kern.name][4]:.4f}) at the "
             f"paper point")
     return rows
+
+
+def _same_qa(got, want) -> bool:
+    return (torch_equal(got.codes, want.codes)
+            and torch_equal(got.scale, want.scale)
+            and torch_equal(got.zero_point, want.zero_point)
+            and got.codes.dtype == want.codes.dtype
+            and got.scale.dtype == want.scale.dtype)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def two_pass(m: int, k: int, clip_pct: float) -> bool:
+    """Whether the periphery's quantizer takes act_range before act_quant
+    on x [m, k]: a min/max range over more than one block."""
+    from repro_torch.kernels import periphery
+
+    return clip_pct >= 1.0 and m * k > periphery.SINGLE_BLOCK_MAX
+
+
+def lm_periphery_launches(cfg, m: int) -> collections.Counter:
+    """The periphery kernels' launches of one LM pass at m activation rows
+    (each macro call: act_quant and dequant_epilogue, act_range before
+    act_quant over more than one block)."""
+    ks = ((cfg.d_model,) * 3 + (cfg.n_heads * cfg.head_dim,)
+          + (cfg.d_model,) * 2 + (cfg.d_ff,))
+    calls = cfg.n_layers * len(ks)
+    ranged = cfg.n_layers * sum(two_pass(m, k, cfg.cim.act_clip_pct)
+                                for k in ks)
+    return collections.Counter({"act_quant": calls, "dequant_epilogue": calls,
+                                "act_range": ranged})
+
+
+def periphery_launches() -> collections.Counter:
+    from repro_torch.kernels import cim_mac
+
+    return collections.Counter({k: v for k, v in cim_mac.LAUNCHES.items()
+                                if k in PERI_KERNELS})
+
+
+def phase_periphery(params, bn, images):
+    """The engine's periphery kernels (``kernels/periphery.py``, see the
+    module docstring). Returns the kernels-line entries of act_quant,
+    act_range and dequant_epilogue."""
+    import torch
+
+    from repro_torch.configs import resnet as rcfg
+    from repro_torch.core import quant
+    from repro_torch.core.params import PAPER_OP_16ROWS
+    from repro_torch.kernels import cim_mac, periphery
+    from repro_torch.models import resnet
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checks = 0
+
+    def counted(fn):
+        cim_mac.LAUNCHES.clear()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, periphery_launches()
+
+    def check(what, x, act_bits, symmetric, clip, w, colsum, wscale):
+        """Both wrappers on (x, w) against their plain versions and the
+        ATen ops, with their launches counted."""
+        nonlocal checks
+        m, k = x.shape
+        qa, got = counted(lambda: periphery.quantize_acts(
+            x, act_bits, symmetric=symmetric, clip_pct=clip))
+        want = collections.Counter({"act_quant": 1, "act_range": int(
+            two_pass(m, k, clip))})
+        if got != want:
+            raise AssertionError(f"{what}: quantizer launches {dict(got)}, "
+                                 f"want {dict(want)}")
+        for name, ref in (("plain", periphery.quantize_acts_plain),
+                          ("ATen", quant.quantize_acts)):
+            if not _same_qa(qa, ref(x, act_bits, symmetric=symmetric,
+                                    clip_pct=clip)):
+                raise AssertionError(f"{what}: act_quant != the {name} "
+                                     "quantizer")
+        y_int = cim_mac.gpq_matmul(qa.codes, w, PAPER_OP_16ROWS)
+        for out_dtype in {x.dtype, torch.float32}:
+            y, got = counted(lambda out_dtype=out_dtype: periphery
+                             .dequant_epilogue(y_int, qa, colsum, wscale,
+                                               out_dtype))
+            if got != {"dequant_epilogue": 1}:
+                raise AssertionError(f"{what}: epilogue launches {dict(got)}")
+            aten = (y_int - qa.zero_point.to(torch.float32) * colsum)
+            aten = (aten * qa.scale * wscale).to(out_dtype)
+            plain = periphery.dequant_epilogue_plain(y_int, qa, colsum,
+                                                     wscale, out_dtype)
+            if not (torch_equal(y, plain) and torch_equal(y, aten)):
+                raise AssertionError(f"{what}: dequant_epilogue to "
+                                     f"{out_dtype} != plain or ATen")
+        checks += 1
+
+    # The LM paths' shapes: each dtype the kernels take, both quantizers.
+    lm = {}
+    for what, m, k, n in PERI_SHAPES:
+        x32 = torch.randn((m, k), generator=gen, device="cuda") * 3 + 0.7
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        colsum = w.sum(0, keepdim=True, dtype=torch.int32).to(torch.float32)
+        wscale = torch.rand((1, n), generator=gen, device="cuda") * 1e-3
+        for dtype in periphery.DTYPES:
+            for symmetric in (False, True):
+                x = (x32.abs() if symmetric else x32).to(dtype)
+                check(f"{what} [{m}, {k}] {dtype} "
+                      f"{'sym' if symmetric else 'asym'}", x, 4, symmetric,
+                      1.0, w, colsum, wscale)
+        lm[what] = (x32.to(torch.bfloat16), w, colsum, wscale)
+    # The ResNet's 14 operands: the percentile's range, the plans' own
+    # colsum and scale.
+    policy = rcfg.cim_policy(mode="cim-kernel")
+    cfg = dataclasses.replace(rcfg.RESNET_CFG, cim=policy)
+    planned = resnet.plan_params(params, policy)
+    taps = []
+    with torch.no_grad():
+        resnet.forward(planned, bn, images, cfg,
+                       tap=lambda name, x2, plan: taps.append((name, x2,
+                                                               plan)))
+    for name, x2, plan in taps:
+        colsum = plan.colsum
+        if colsum is None:  # the engine's own fallback
+            colsum = torch.sum(plan.codes_i32, dim=-2, keepdim=True).to(
+                torch.float32)
+        check(f"resnet {name} {tuple(x2.shape)}", x2, policy.cim.act_bits,
+              policy.act_symmetric, policy.act_clip_pct, plan.codes, colsum,
+              plan.scale)
+    log(f"[periphery] {checks} operands: act_quant (one block up to "
+        f"{periphery.SINGLE_BLOCK_MAX} elements, after act_range above it, "
+        f"after the percentile at the ResNet's clip "
+        f"{policy.act_clip_pct}) == quantize_acts_plain == "
+        f"quant.quantize_acts and dequant_epilogue == plain == the ATen "
+        f"epilogue (torch.equal, both output dtypes), each call's launches "
+        f"counted")
+    # One cim-kernel forward counted from cleared counters, and its logits
+    # against the same forward with the ATen periphery.
+    with torch.no_grad():
+        (logits, _), got = counted(lambda: resnet.forward(planned, bn,
+                                                          images, cfg))
+        takes = periphery.takes
+        periphery.takes = lambda x2, plan: False
+        try:
+            aten, _ = resnet.forward(planned, bn, images, cfg)
+        finally:
+            periphery.takes = takes
+    want = collections.Counter({"act_quant": MACRO_CONVS,
+                                "dequant_epilogue": MACRO_CONVS})
+    if got != want or not torch.equal(logits, aten):
+        raise AssertionError(f"resnet forward: periphery launches "
+                             f"{dict(got)} (want {dict(want)}), or logits "
+                             f"!= the ATen periphery's")
+    log(f"[periphery] one cim-kernel ResNet forward: {dict(got)}; logits == "
+        f"the same forward with the ATen periphery (torch.equal)")
+
+    # Times: one launch alone at a granite expert's shape and at the
+    # prefill's, beside the plain version, the ATen ops and the byte bound.
+    # The timed calls cycle over copies of their input that together pass
+    # PERI_COLD_BYTES, so the prefill's inputs come cold from HBM, as the
+    # bound counts them; a small one stays in L2, as behind the op that
+    # wrote it.
+    def copies(t):
+        n = min(64, max(1, -(-PERI_COLD_BYTES
+                             // (t.numel() * t.element_size()))))
+        return [t] + [t.clone() for _ in range(n - 1)]
+
+    def cycled(ts):
+        """A function that returns the next of ts at each call."""
+        it = iter(range(1 << 62))
+        return lambda: ts[next(it) % len(ts)]
+
+    def timed(fn):
+        return cuda_time_ms(fn), graph_time_ms(fn)
+
+    def bound(nbytes):
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+    def quantizer_launches(xs):
+        """act_range's and act_quant's launches, each on the next of xs, as
+        the wrapper makes them (min/max range; the stream read at each
+        launch, so a graph captures it)."""
+        x = xs[0]
+        n = x.numel()
+        dt, nxt = periphery.DTYPES[x.dtype], cycled(xs)
+        codes = torch.empty(x.shape, dtype=torch.int32, device="cuda")
+        sz = [torch.empty((1, 1), dtype=d, device="cuda")
+              for d in (x.dtype, torch.int32)]
+        if n <= periphery.SINGLE_BLOCK_MAX:
+            src, blocks, partials = periphery._RANGE_SELF, 1, None
+        else:
+            src, blocks = periphery._RANGE_PARTIALS, periphery.grid(-(-n // 4))
+            partials = torch.empty(2 * blocks, dtype=torch.float32,
+                                   device="cuda")
+
+        def act_range():
+            xi = nxt()
+            periphery._call("act_range", xi.data_ptr(), dt, n, blocks,
+                            partials.data_ptr(), periphery._stream(xi))
+
+        def act_quant():
+            xi = nxt()
+            periphery._call(
+                "act_quant", xi.data_ptr(), dt, n, blocks, src,
+                None if partials is None else partials.data_ptr(),
+                0 if partials is None else blocks, None, None, 15.0, 1e-8, 0,
+                codes.data_ptr(), sz[0].data_ptr(), sz[1].data_ptr(),
+                periphery._stream(xi))
+
+        if partials is not None:
+            act_range()
+        act_quant()
+        torch.cuda.synchronize()
+        if not _same_qa(quant.QuantizedActs(codes, *sz),
+                        quant.quantize_acts(x, 4)):
+            raise AssertionError("the timed launches != quant.quantize_acts")
+        return act_range, act_quant, blocks
+
+    rows = {}
+    for what in ("granite expert up", "qwen2 prefill down"):
+        x, w, colsum, wscale = lm[what]
+        m, k = x.shape
+        n = x.numel()
+        es = x.element_size()
+        xs = copies(x)
+        act_range, act_quant, blocks = quantizer_launches(xs)
+        qa = quant.quantize_acts(x, 4)
+        nx = cycled(xs)
+        plain_ms = cuda_time_ms(
+            lambda: periphery.quantize_acts_plain(nx(), 4))
+        aten_ms = cuda_time_ms(lambda: quant.quantize_acts(nx(), 4))
+        part = 8 * blocks if blocks > 1 else 0
+        rows["act_quant", what] = (
+            *timed(act_quant), plain_ms, aten_ms, bound(n * es + 4 * n + part),
+            f"x [{m}, {k}] bfloat16"
+            + (f", after act_range ({blocks} blocks)" if part else
+               ", one block"))
+        if part:
+            rows["act_range", what] = (
+                *timed(act_range),
+                cuda_time_ms(lambda: quant._range_stats(nx(), (0, 1), 1.0)),
+                None, bound(n * es + part), f"x [{m}, {k}] bfloat16, "
+                f"{blocks} blocks")
+        del xs, nx
+        mo, no = (m, w.shape[1])
+        ys = copies(cim_mac.gpq_matmul(qa.codes, w, PAPER_OP_16ROWS))
+        ny = cycled(ys)
+
+        def aten_epi():
+            y = ny() - qa.zero_point.to(torch.float32) * colsum
+            return (y * qa.scale * wscale).to(x.dtype)
+
+        rows["dequant_epilogue", what] = (
+            *timed(lambda: periphery.dequant_epilogue(ny(), qa, colsum,
+                                                      wscale, x.dtype)),
+            cuda_time_ms(lambda: periphery.dequant_epilogue_plain(
+                ny(), qa, colsum, wscale, x.dtype)),
+            cuda_time_ms(aten_epi), bound(mo * no * (4 + es) + 8 * no),
+            f"y [{mo}, {no}] to bfloat16")
+        del ys, ny
+        torch.cuda.empty_cache()
+    for (kern, what), (ms, dev, plain, aten, bnd, shape) in rows.items():
+        # Cold inputs cannot beat HBM: below the bound, the graph missed
+        # the launches.
+        if what == "qwen2 prefill down" and dev < bnd:
+            raise AssertionError(f"{kern} {what}: {dev} device ms under its "
+                                 f"byte bound {bnd}")
+        log(f"[periphery-timing] {kern:16s} {what} {shape}: kernel "
+            f"{ms:.4f} ms over back-to-back calls ({dev:.4f} device ms in a "
+            f"graph), plain {plain:.4f} ms, ATen ops "
+            f"{'n/a' if aten is None else f'{aten:.4f} ms'}, bound "
+            f"{bnd:.6f} ms (bytes)")
+    entries = []
+    for kern, source in PERI_KERNELS.items():
+        keyed = {what: r for (kn, what), r in rows.items() if kn == kern}
+        first, *rest = keyed.items()
+        entry = {
+            "name": kern,
+            "path": f"{first[0]}, {first[1][5]}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/periphery.cu",
+            "replaces": source,
+            "launches": None,  # phase 7's counted steps (main)
+            "max_abs_err": 0.0,
+            "ms": first[1][0],
+            "device_ms": first[1][1],
+            "plain_ms": first[1][2],
+            "bound_ms": first[1][4],
+            "bound_by": "bytes",
+            "library_ms": first[1][3],
+        }
+        for what, r in rest:
+            entry.update(prefill_path=f"{what}, {r[5]}", prefill_ms=r[0],
+                         prefill_device_ms=r[1], prefill_plain_ms=r[2],
+                         prefill_library_ms=r[3], prefill_bound_ms=r[4])
+        entries.append(entry)
+    del planned, taps, lm
+    torch.cuda.empty_cache()
+    log(f"[periphery] phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 def lm_cfg(mode: str, arch: str = LM_ARCH, smoke: bool = False, **kw):
@@ -1234,6 +1587,8 @@ def phase_lm():
     # The kernel path against the scan twin, step by step.
     resolutions, launches = [], []
 
+    peri = collections.Counter()
+
     def counted(i, fn):
         cim_mac.LAUNCHES.clear()
         with dispatch.record_resolutions() as res:
@@ -1241,6 +1596,14 @@ def phase_lm():
         resolutions.append(collections.Counter(
             (r.key.variant, r.key.backend, r.source) for r in res))
         launches.append(cim_mac.LAUNCHES["gpq_matmul"])
+        # Each macro call's periphery: the prefill's M = batch x prompt
+        # rows, a decode step's M = batch.
+        got, want = periphery_launches(), lm_periphery_launches(
+            cfg_k, prompts.numel() if i == 0 else LM_BATCH)
+        if got != want:
+            raise AssertionError(f"step {i}: periphery launches "
+                                 f"{dict(got)}, want {dict(want)}")
+        peri.update(got)
         return out
 
     t0 = time.perf_counter()
@@ -1269,7 +1632,8 @@ def phase_lm():
     log(f"[lm] prefill + {LM_SCAN_STEPS} decode steps: cim-kernel logits == "
         f"scan twin's (torch.equal) at every step; {per_step} explicit "
         f"(p8t, cuda) resolutions and {per_step} B1 launches per step "
-        f"(prefill and each decode step); {t_kern:.1f} s through B1, "
+        f"(prefill and each decode step), periphery launches {dict(peri)} "
+        f"in all; {t_kern:.1f} s through B1, "
         f"{t_scan:.1f} s through the scan")
 
     # The card against the port's CPU path, full width at depth 2, in
@@ -1343,7 +1707,7 @@ def phase_lm():
 
     timings = b1_timings(ops, spec, cfg_k.n_layers)
     lm_profile(planned, cfg_k, prompts)
-    return gen_launches, max_err, timings
+    return gen_launches, max_err, timings, peri
 
 
 def b1_timings(ops, spec, n_layers: int, tag: str = "lm-timing",
@@ -3044,7 +3408,7 @@ def counted_measure(name: str):
         with dispatch.record_resolutions() as res:
             rec = orig.fn(config, point)
         per_point[point.index] = (
-            collections.Counter(cim_mac.LAUNCHES),
+            gpq_launches(),
             collections.Counter((r.key.variant, r.key.backend, r.source)
                                 for r in res))
         return rec
@@ -4024,8 +4388,13 @@ def main() -> int:
     phase_profile(params, bn, batches[0][0])
     launches = phase_variants(params, bn, batches, slice1_logits)
     timings = phase_timings(ops, spec)
+    peri_entries = phase_periphery(params, bn, batches[0][0])
     lap("3-6")
-    lm_launches, lm_err, lm_t = phase_lm()
+    lm_launches, lm_err, lm_t, lm_peri = phase_lm()
+    for entry in peri_entries:
+        entry["launches"] = lm_peri[entry["name"]]
+        entry["launches_path"] = (f"{LM_ARCH} prefill + {LM_SCAN_STEPS} "
+                                  f"decode steps (phase 7, counted)")
     lap("7")
     cal_entries = phase_calibration(params, bn, batches)
     lap("8")
@@ -4086,7 +4455,7 @@ def main() -> int:
         "prefill_plain_ms": lm_t["prefill"][1],
         "prefill_bound_ms": lm_t["prefill"][2],
     })
-    report["kernels"] += (cal_entries + wh_entries + [vlm_entry] + fam_entries
+    report["kernels"] += (peri_entries + cal_entries + wh_entries + [vlm_entry] + fam_entries
                           + [train_entry] + sweep_entries + shard_entries
                           + example_entries)
     log(json.dumps(report))

@@ -311,12 +311,21 @@ def quantized_backend(int_fn) -> BackendFn:
     macro): dynamic activation quantization in, dequantization +
     zero-point column correction out, cast back to the activation dtype
     outside 'fp' mode. Each of the three parts runs in its span
-    (``repro_torch.engine.quantize``, ``.macro``, ``.epilogue``)."""
+    (``repro_torch.engine.quantize``, ``.macro``, ``.epilogue``).
+
+    Where ``kernels.periphery.takes`` the call (a CUDA activation of a
+    float dtype, no autograd through the scales), the quantizer and the
+    epilogue run as that module's kernels, bit for bit the ATen ops'
+    results; everywhere else as the ATen ops."""
 
     def run(x2, plan, policy, generator):
+        from repro_torch.kernels import periphery  # kernels import engine
+
         cfg = policy.cim
+        fused = periphery.takes(x2, plan)
+        quantize = periphery.quantize_acts if fused else quant.quantize_acts
         with tracing.span("repro_torch.engine.quantize"):
-            qa = quant.quantize_acts(
+            qa = quantize(
                 x2,
                 cfg.act_bits,
                 symmetric=policy.act_symmetric,
@@ -330,6 +339,10 @@ def quantized_backend(int_fn) -> BackendFn:
                 colsum = torch.sum(
                     plan.codes_i32, dim=-2, keepdim=True
                 ).to(torch.float32)
+            if fused:
+                return periphery.dequant_epilogue(
+                    y_int, qa, colsum, plan.scale,
+                    x2.dtype if policy.mode != "fp" else torch.float32)
             y = y_int - qa.zero_point.to(torch.float32) * colsum
             y = y * qa.scale * plan.scale
             if policy.mode != "fp":  # execute's cast, inside the span

@@ -37,6 +37,8 @@ The spans (every name starts with ``repro_torch.``):
   resnet.forward      ``models.resnet.forward``: one forward
   resnet.im2col       ``models.resnet.im2col``: the pad and the unfold
   engine.quantize     a quantized backend's activation quantizer
+  engine.quantize_kernel  inside it, the launch of the quantizer's kernels
+                      (``kernels.periphery``) where the engine takes them
   engine.macro        its integer macro matmul: dispatch, the kernel's
                       spec and checks, the launch
   engine.epilogue     its zero-point correction, both scales and the cast

@@ -32,7 +32,7 @@ import torch
 from repro_torch.configs.base import ARCH_IDS, CIMPolicy, get_config
 from repro_torch.core import engine
 from repro_torch.core.params import PAPER_OP_16ROWS
-from repro_torch.kernels import cim_mac, dispatch
+from repro_torch.kernels import cim_mac, dispatch, periphery
 from repro_torch.models import attention, common, transformer
 from repro_torch.serve.engine import (ContinuousBatcher, Request,
                                       ServeEngine, graphs_decode)
@@ -303,8 +303,25 @@ def test_replays_report_every_macro_call(card, n_layers):
     # the eager engine's trace counts them.
     assert g_traced == e_traced == per_step * n
     # On the host only the prefill's wrappers launched; a replay calls none.
-    assert e_launch == {"gpq_matmul": per_step * n}
-    assert g_launch == {"gpq_matmul": per_step}
+    # Each macro call's periphery runs as act_quant and dequant_epilogue,
+    # with act_range first where the activation passes the single block.
+    ranged = (_two_pass(cfg, 4 * 8) + (n - 1) * _two_pass(cfg, 4)) * n_layers
+    assert e_launch == _launches(per_step * n, ranged)
+    assert g_launch == _launches(per_step, _two_pass(cfg, 4 * 8) * n_layers)
+
+
+def _two_pass(cfg, m: int) -> int:
+    """A layer's projections whose quantizer takes two launches (act_range,
+    then act_quant) at m activation rows: those over SINGLE_BLOCK_MAX
+    elements."""
+    ks = (cfg.d_model,) * 5 + (cfg.n_heads * cfg.head_dim, cfg.d_ff)
+    return sum(m * k > periphery.SINGLE_BLOCK_MAX for k in ks)
+
+
+def _launches(calls: int, ranged: int) -> collections.Counter:
+    return collections.Counter({"gpq_matmul": calls, "act_quant": calls,
+                                "dequant_epilogue": calls,
+                                "act_range": ranged})
 
 
 @pytest.mark.card

@@ -210,12 +210,18 @@ def test_plain_path_does_not_count_launches():
 def test_build_finds_source_and_reports_missing_nvcc(monkeypatch):
     srcs = build.sources()
     assert set(srcs) == {"gpq_matmul", "adder_tree_gpq_matmul",
-                         "cell_adc_gpq_matmul"}
+                         "cell_adc_gpq_matmul", "periphery"}
     for name, src in srcs.items():
         text = src.read_text()
-        assert f"repro/kernels/cim_mac.py::{name}" in text
-        assert 'extern "C"' in text and f"{name}_launch" in text
+        assert 'extern "C"' in text
         assert '#include "gpq_launch.cuh"' in text
+        if name == "periphery":  # the engine's quantizer and epilogue
+            assert "Replaces no Pallas kernel" in text
+            for kernel in ("act_range", "act_quant", "dequant_epilogue"):
+                assert f"{kernel}_launch" in text
+        else:
+            assert f"repro/kernels/cim_mac.py::{name}" in text
+            assert f"{name}_launch" in text
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setenv("PATH", "/nonexistent")
