@@ -1169,7 +1169,7 @@ def phase_periphery(params, bn, images):
     from repro_torch.configs import resnet as rcfg
     from repro_torch.core import quant
     from repro_torch.core.params import PAPER_OP_16ROWS
-    from repro_torch.kernels import cim_mac, periphery
+    from repro_torch.kernels import build, cim_mac, periphery
     from repro_torch.models import resnet
 
     t_phase = time.perf_counter()
@@ -1317,17 +1317,17 @@ def phase_periphery(params, bn, images):
 
         def act_range():
             xi = nxt()
-            periphery._call("act_range", xi.data_ptr(), dt, n, blocks,
-                            partials.data_ptr(), periphery._stream(xi))
+            build.launch(periphery.SOURCE, "act_range", xi.data_ptr(), dt, n,
+                         blocks, partials.data_ptr(), build.stream(xi))
 
         def act_quant():
             xi = nxt()
-            periphery._call(
-                "act_quant", xi.data_ptr(), dt, n, blocks, src,
-                None if partials is None else partials.data_ptr(),
+            build.launch(
+                periphery.SOURCE, "act_quant", xi.data_ptr(), dt, n, blocks,
+                src, None if partials is None else partials.data_ptr(),
                 0 if partials is None else blocks, None, None, 15.0, 1e-8, 0,
                 codes.data_ptr(), sz[0].data_ptr(), sz[1].data_ptr(),
-                periphery._stream(xi))
+                build.stream(xi))
 
         if partials is not None:
             act_range()

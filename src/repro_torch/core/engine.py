@@ -316,7 +316,8 @@ def quantized_backend(int_fn) -> BackendFn:
     Where ``kernels.periphery.takes`` the call (a CUDA activation of a
     float dtype, no autograd through the scales), the quantizer and the
     epilogue run as that module's kernels, bit for bit the ATen ops'
-    results; everywhere else as the ATen ops."""
+    results; everywhere else as the ATen ops (the epilogue's are
+    ``periphery.dequant_epilogue_plain``)."""
 
     def run(x2, plan, policy, generator):
         from repro_torch.kernels import periphery  # kernels import engine
@@ -339,15 +340,12 @@ def quantized_backend(int_fn) -> BackendFn:
                 colsum = torch.sum(
                     plan.codes_i32, dim=-2, keepdim=True
                 ).to(torch.float32)
-            if fused:
-                return periphery.dequant_epilogue(
-                    y_int, qa, colsum, plan.scale,
-                    x2.dtype if policy.mode != "fp" else torch.float32)
-            y = y_int - qa.zero_point.to(torch.float32) * colsum
-            y = y * qa.scale * plan.scale
-            if policy.mode != "fp":  # execute's cast, inside the span
-                y = y.to(x2.dtype)
-        return y
+            epilogue = (periphery.dequant_epilogue if fused
+                        else periphery.dequant_epilogue_plain)
+            # execute's cast, inside the span; 'fp' keeps the product's dtype
+            return epilogue(y_int, qa, colsum, plan.scale,
+                            x2.dtype if policy.mode != "fp" else
+                            torch.promote_types(torch.float32, qa.scale.dtype))
 
     return run
 

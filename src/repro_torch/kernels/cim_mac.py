@@ -35,16 +35,13 @@ Each wrapper takes an optional ``bn``, the kernel's column tile (16, 32
 or 64; None or 0 picks it by N, as before), the block an autotuned pin
 fixes. Any other value raises, on either device.
 
-``LAUNCHES`` counts kernel launches by kernel name; it moves only where
-a wrapper launches a kernel. A launch into a CUDA graph's capture counts
-once, there; the graph's replays call no wrapper and move nothing (a
-device trace counts the kernels a replay runs).
+``LAUNCHES`` (``build.LAUNCHES``) counts kernel launches by kernel name;
+it moves only where a wrapper launches a kernel. A launch into a CUDA
+graph's capture counts once, there; the graph's replays call no wrapper
+and move nothing (a device trace counts the kernels a replay runs).
 """
 
 from __future__ import annotations
-
-import collections
-import ctypes
 
 import torch
 
@@ -54,7 +51,16 @@ from repro_torch.core.quant import plane_signs, true_divide
 from repro_torch.core.variants import merged_quant
 from repro_torch.kernels import build
 
-LAUNCHES: collections.Counter[str] = collections.Counter()
+LAUNCHES = build.LAUNCHES
+
+# csrc/<name>.cu's <name>_launch(x, w, out, M, K, N, rows, weight_bits,
+# <the conversion's scalars, as each wrapper passes them>, bn, stream).
+_P, _I, _F = build.PTR, build.INT, build.FLOAT
+for _name, _conversion in (("gpq_matmul", (_I, _I, _I, _I, _F)),
+                           ("adder_tree_gpq_matmul", (_I, _I, _I, _F)),
+                           ("cell_adc_gpq_matmul", (_I, _I, _I, _F))):
+    build.declare(_name, {_name: (_P, _P, _P, _I, _I, _I, _I, _I,
+                                  *_conversion, _I, build.STREAM)})
 
 
 class DepthGuardError(ValueError):
@@ -275,44 +281,6 @@ def check_bn(bn: int | None) -> int:
     return int(bn)
 
 
-_BOUND: set[str] = set()
-
-
-def _launch(name: str, x: torch.Tensor, w: torch.Tensor, *args,
-            stream: int) -> torch.Tensor:
-    """Launch kernel ``name`` on [M, K] x [K, N] without synchronising.
-
-    ``args`` are the kernel's scalar arguments after (x, w, out, M, K,
-    N), its column tile ``bn`` last: Python ints pass as C ints, floats as
-    C floats. Counts the launch.
-    """
-    m, k = x.shape
-    n = w.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    if m == 0 or n == 0:
-        return out
-    if k == 0:
-        return out.zero_()
-    lib = build.library(name)
-    fn = getattr(lib, f"{name}_launch")
-    if name not in _BOUND:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i] + [
-            i if isinstance(a, int) else ctypes.c_float for a in args
-        ] + [p]
-        fn.restype = i
-        lib.gpq_error_string.argtypes = [i]
-        lib.gpq_error_string.restype = ctypes.c_char_p
-        _BOUND.add(name)
-    rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, *args,
-            stream)
-    if rc != 0:
-        msg = lib.gpq_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
-    LAUNCHES[name] += 1
-    return out
-
-
 def _on_cpu(x: torch.Tensor, w: torch.Tensor) -> bool:
     return x.device.type == "cpu" and w.device.type == "cpu"
 
@@ -325,8 +293,48 @@ def _abstract_out(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                        device="meta")
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+def _nearest(spec: MacroSpec) -> int:
+    return int(spec.adc_mode == "nearest")
+
+
+def _merged_args(spec: MacroSpec) -> tuple:
+    mq = merged_quant(spec)
+    return mq.code_min, mq.code_max, _nearest(spec), float(mq.step)
+
+
+def _sar_guard(k: int, spec: MacroSpec) -> None:
+    # B1's depth guard; the SAR compares pMAC * 2^(adc_bits+1) + threshold
+    # against 2 * trial * threshold in int32, the pMAC clamped to threshold.
+    _depth_guard(k, spec)
+    if spec.threshold * (4 << spec.adc_bits) >= 1 << 31:
+        raise ValueError("the cell-ADC kernel's int32 compares do not "
+                         "cover this operating point")
+
+
+def _gpq(name: str, x: torch.Tensor, w: torch.Tensor,
+         cfg: CIMConfig | MacroSpec, bn: int | None, plain, guard,
+         conversion) -> torch.Tensor:
+    """The wrappers' one path: ``plain`` on CPU tensors; else the launch's
+    checks and ``guard(K, spec)``, and on CUDA the launch of ``name`` with
+    the scalars ``conversion(spec)`` (none where M, N or K is 0)."""
+    spec = MacroSpec.from_config(cfg)
+    bn = check_bn(bn)
+    if _on_cpu(x, w):
+        return plain(x, w, spec)
+    _check_plane_spec(spec)
+    _check_operands(x, w, spec)
+    guard(x.shape[1], spec)
+    if x.is_meta:
+        return _abstract_out(x, w)
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if 0 in (m, k, n):  # nothing to launch
+        return out.zero_()
+    build.launch(name, name, x.data_ptr(), w.data_ptr(), out.data_ptr(), m,
+                 k, n, spec.rows_active, spec.weight_bits, *conversion(spec),
+                 bn, build.stream(x))
+    return out
 
 
 def gpq_matmul(
@@ -347,21 +355,9 @@ def gpq_matmul(
     raises. Both raise ``DepthGuardError`` past the reference's depth
     guard.
     """
-    spec = MacroSpec.from_config(cfg)
-    bn = check_bn(bn)
-    if _on_cpu(x_codes, w_codes):
-        return gpq_matmul_plain(x_codes, w_codes, spec)
-    _check_plane_spec(spec)
-    _check_operands(x_codes, w_codes, spec)
-    _depth_guard(x_codes.shape[1], spec)
-    if x_codes.is_meta:
-        return _abstract_out(x_codes, w_codes)
-    return _launch(
-        "gpq_matmul", x_codes, w_codes, spec.rows_active, spec.weight_bits,
-        spec.adc_bits, spec.threshold, spec.adc_codes,
-        int(spec.adc_mode == "nearest"), float(spec.adc_step), bn,
-        stream=_stream(x_codes),
-    )
+    return _gpq("gpq_matmul", x_codes, w_codes, cfg, bn, gpq_matmul_plain,
+                _depth_guard, lambda s: (s.adc_bits, s.threshold, s.adc_codes,
+                                         _nearest(s), float(s.adc_step)))
 
 
 def adder_tree_gpq_matmul(
@@ -379,22 +375,9 @@ def adder_tree_gpq_matmul(
     active rows, as B1) or raise. Both raise ``DepthGuardError`` past the
     reference's merged-code depth guard.
     """
-    spec = MacroSpec.from_config(cfg)
-    bn = check_bn(bn)
-    if _on_cpu(x_codes, w_codes):
-        return adder_tree_gpq_matmul_plain(x_codes, w_codes, spec)
-    _check_plane_spec(spec)
-    _check_operands(x_codes, w_codes, spec)
-    _merged_depth_guard(x_codes.shape[1], spec)
-    if x_codes.is_meta:
-        return _abstract_out(x_codes, w_codes)
-    mq = merged_quant(spec)
-    return _launch(
-        "adder_tree_gpq_matmul", x_codes, w_codes, spec.rows_active,
-        spec.weight_bits, mq.code_min, mq.code_max,
-        int(spec.adc_mode == "nearest"), float(mq.step), bn,
-        stream=_stream(x_codes),
-    )
+    return _gpq("adder_tree_gpq_matmul", x_codes, w_codes, cfg, bn,
+                adder_tree_gpq_matmul_plain, _merged_depth_guard,
+                _merged_args)
 
 
 def cell_adc_gpq_matmul(
@@ -412,24 +395,7 @@ def cell_adc_gpq_matmul(
     rows, as B1) or raise. Both raise ``DepthGuardError`` past the
     reference's depth guard (B1's).
     """
-    spec = MacroSpec.from_config(cfg)
-    bn = check_bn(bn)
-    if _on_cpu(x_codes, w_codes):
-        return cell_adc_gpq_matmul_plain(x_codes, w_codes, spec)
-    _check_plane_spec(spec)
-    _check_operands(x_codes, w_codes, spec)
-    _depth_guard(x_codes.shape[1], spec)
-    # The SAR compares pMAC * 2^(adc_bits+1) + threshold against
-    # 2 * trial * threshold in int32, with the pMAC clamped to the
-    # threshold.
-    if spec.threshold * (4 << spec.adc_bits) >= 1 << 31:
-        raise ValueError("the cell-ADC kernel's int32 compares do not "
-                         "cover this operating point")
-    if x_codes.is_meta:
-        return _abstract_out(x_codes, w_codes)
-    return _launch(
-        "cell_adc_gpq_matmul", x_codes, w_codes, spec.rows_active,
-        spec.weight_bits, spec.adc_bits, spec.threshold,
-        int(spec.adc_mode == "nearest"), float(spec.adc_step), bn,
-        stream=_stream(x_codes),
-    )
+    return _gpq("cell_adc_gpq_matmul", x_codes, w_codes, cfg, bn,
+                cell_adc_gpq_matmul_plain, _sar_guard,
+                lambda s: (s.adc_bits, s.threshold, _nearest(s),
+                           float(s.adc_step)))

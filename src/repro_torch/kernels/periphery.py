@@ -23,23 +23,21 @@ the ATen ops compute, bit for bit; the ``*_plain`` versions take the
 kernels' ops in PyTorch, float32 rounded to the activation dtype after
 each op, and are what the kernels are held to on the card.
 
-On a CUDA tensor a wrapper launches its kernels on the current stream
-without synchronising, and counts each launch in ``cim_mac.LAUNCHES`` by
-kernel name; on a CPU tensor it runs the plain version. The engine takes
-this path only where :func:`takes` holds; everything else (the CPU, a
-dtype the kernels do not take, autograd through the scales) keeps the ATen
-ops.
+On a CUDA tensor a wrapper launches its kernels (``build.launch``, each
+counted in ``build.LAUNCHES`` by kernel name) on the current stream
+without synchronising; on a CPU tensor it runs the plain version. The
+engine takes this path only where :func:`takes` holds; everything else
+(the CPU, a dtype the kernels do not take, autograd through the scales)
+keeps the ATen ops.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch import tracing
 from repro_torch.core import quant
-from repro_torch.kernels import build, cim_mac
+from repro_torch.kernels import build
 
 SOURCE = "periphery"
 # Activation dtypes the kernels take, by the code csrc/periphery.cu reads.
@@ -59,11 +57,6 @@ _RANGE_SELF, _RANGE_PARTIALS, _RANGE_GIVEN = 0, 1, 2
 
 def _on_card(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
-
-
-def _stream(x: torch.Tensor) -> int:
-    # The raw handle: a tenth of torch.cuda.current_stream's host time.
-    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def takes(x2: torch.Tensor, plan) -> bool:
@@ -132,13 +125,13 @@ def dequant_epilogue_plain(
     wscale: torch.Tensor,
     out_dtype: torch.dtype,
 ) -> torch.Tensor:
-    """``dequant_epilogue`` in plain PyTorch ops: float32 throughout, one
-    rounding per op, ((y_int - f32(zp) * colsum) * f32(scale)) * wscale,
-    then the cast."""
-    f32 = torch.float32
+    """``dequant_epilogue`` in plain PyTorch ops, and the engine's epilogue
+    off the kernels: one rounding per op, ((y_int - f32(zp) * colsum) *
+    scale) * wscale, then the cast; float32 throughout for the kernels'
+    dtypes (a float64 scale promotes the product)."""
     n = y_int.shape[-1]
-    correction = qa.zero_point.to(f32) * colsum.reshape(1, n)
-    y = (y_int - correction) * qa.scale.to(f32)
+    correction = qa.zero_point.to(torch.float32) * colsum.reshape(1, n)
+    y = (y_int - correction) * qa.scale
     return (y * wscale.reshape(1, n)).to(out_dtype)
 
 
@@ -146,37 +139,15 @@ def dequant_epilogue_plain(
 # Launches
 # ---------------------------------------------------------------------------
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _LL, _F, _S = (build.PTR, build.INT, build.INT64, build.FLOAT,
+                       build.STREAM)
 _ARGTYPES = {
-    "act_range": [_P, _I, _LL, _I, _P, _P],
+    "act_range": [_P, _I, _LL, _I, _P, _S],
     "act_quant": [_P, _I, _LL, _I, _I, _P, _I, _P, _P, _F, _F, _I, _P, _P,
-                  _P, _P],
-    "dequant_epilogue": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _P],
+                  _P, _S],
+    "dequant_epilogue": [_P, _P, _P, _P, _P, _P, _I, _I, _LL, _I, _I, _S],
 }
-_FNS: dict[str, ctypes._CFuncPtr] = {}
-
-
-def _fn(kernel: str):
-    """The bound C entry point ``<kernel>_launch`` of csrc/periphery.cu."""
-    fn = _FNS.get(kernel)
-    if fn is None:
-        lib = build.library(SOURCE)
-        fn = getattr(lib, f"{kernel}_launch")
-        fn.argtypes = _ARGTYPES[kernel]
-        fn.restype = ctypes.c_int
-        lib.gpq_error_string.argtypes = [ctypes.c_int]
-        lib.gpq_error_string.restype = ctypes.c_char_p
-        _FNS[kernel] = fn
-    return fn
-
-
-def _call(kernel: str, *args) -> None:
-    rc = _fn(kernel)(*args)
-    if rc != 0:
-        msg = build.library(SOURCE).gpq_error_string(rc).decode()
-        raise RuntimeError(f"{kernel} launch failed: {msg} ({rc})")
-    cim_mac.LAUNCHES[kernel] += 1
+build.declare(SOURCE, _ARGTYPES)
 
 
 def grid(units: int) -> int:
@@ -222,7 +193,7 @@ def quantize_acts(
     codes = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     scale = torch.empty((1, 1), dtype=x.dtype, device=x.device)
     zp = torch.empty((1, 1), dtype=torch.int32, device=x.device)
-    stream = _stream(x)
+    stream = build.stream(x)
     with tracing.span("repro_torch.engine.quantize_kernel"):
         partials = None
         if given:
@@ -233,15 +204,16 @@ def quantize_acts(
             src, blocks = _RANGE_PARTIALS, grid(-(-n // 4))
             partials = torch.empty(2 * blocks, dtype=torch.float32,
                                    device=x.device)
-            _call("act_range", x.data_ptr(), dtype, n, blocks,
-                  partials.data_ptr(), stream)
-        _call("act_quant", x.data_ptr(), dtype, n, blocks, src,
-              None if partials is None else partials.data_ptr(),
-              0 if partials is None else blocks,
-              None if lo is None else lo.data_ptr(),
-              None if hi is None else hi.data_ptr(),
-              float((1 << act_bits) - 1), eps, int(symmetric),
-              codes.data_ptr(), scale.data_ptr(), zp.data_ptr(), stream)
+            build.launch(SOURCE, "act_range", x.data_ptr(), dtype, n,
+                         blocks, partials.data_ptr(), stream)
+        build.launch(SOURCE, "act_quant", x.data_ptr(), dtype, n, blocks,
+                     src, None if partials is None else partials.data_ptr(),
+                     0 if partials is None else blocks,
+                     None if lo is None else lo.data_ptr(),
+                     None if hi is None else hi.data_ptr(),
+                     float((1 << act_bits) - 1), eps, int(symmetric),
+                     codes.data_ptr(), scale.data_ptr(), zp.data_ptr(),
+                     stream)
     return quant.QuantizedActs(codes, scale, zp)
 
 
@@ -279,8 +251,8 @@ def dequant_epilogue(
     if m == 0 or n == 0:
         return out
     units = m * n // 4 if n % 4 == 0 else m * n
-    _call("dequant_epilogue", y_int.data_ptr(), colsum.data_ptr(),
-          wscale.data_ptr(), qa.scale.data_ptr(), qa.zero_point.data_ptr(),
-          out.data_ptr(), DTYPES[act], DTYPES[out_dtype], m, n, grid(units),
-          _stream(y_int))
+    build.launch(SOURCE, "dequant_epilogue", y_int.data_ptr(),
+                 colsum.data_ptr(), wscale.data_ptr(), qa.scale.data_ptr(),
+                 qa.zero_point.data_ptr(), out.data_ptr(), DTYPES[act],
+                 DTYPES[out_dtype], m, n, grid(units), build.stream(y_int))
     return out

@@ -14,6 +14,7 @@ import functools
 import json
 import math
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -241,6 +242,78 @@ def test_library_name_hashes_the_shared_header(tmp_path, monkeypatch):
     header = tmp_path / "gpq_launch.cuh"
     header.write_text(header.read_text() + "// edited\n")
     assert build._lib_path(src) != before
+
+
+class _StandInLibrary:
+    """A loaded kernel library as ``build.library`` gives it: one entry
+    point ``probe_launch`` that records its calls and returns ``rc``, and
+    the library's ``gpq_error_string``."""
+
+    def __init__(self, rc):
+        self.calls = []
+
+        def probe_launch(*args):
+            self.calls.append(args)
+            return rc
+
+        self.probe_launch = probe_launch
+
+    @staticmethod
+    def gpq_error_string(rc):
+        return f"stand-in error {rc}".encode()
+
+
+@pytest.mark.parametrize("rc", [0, 700], ids=["ok", "refused"])
+def test_launch_binds_the_declaration_checks_and_counts(rc, monkeypatch):
+    """``build.launch`` binds the declared argtypes once, raises with the
+    library's message on a non-zero return code and counts nothing then,
+    else counts each launch once in the one ``LAUNCHES``."""
+    lib = _StandInLibrary(rc)
+    loads = []
+    monkeypatch.setattr(build, "library",
+                        lambda source: loads.append(source) or lib)
+    monkeypatch.setattr(build, "_SIGNATURES", dict(build._SIGNATURES))
+    monkeypatch.setattr(build, "_ENTRIES", {})
+    argtypes = (build.PTR, build.INT, build.INT64, build.FLOAT,
+                build.STREAM)
+    build.declare("probe_src", {"probe": argtypes})
+    args = (1234, 5, 1 << 40, 0.5, None)
+    before = build.LAUNCHES.copy()
+    for _ in range(2):
+        if rc:
+            with pytest.raises(RuntimeError, match=r"^probe launch failed: "
+                               r"stand-in error 700 \(700\)$"):
+                build.launch("probe_src", "probe", *args)
+        else:
+            build.launch("probe_src", "probe", *args)
+    assert loads == ["probe_src"]
+    assert lib.probe_launch.argtypes == argtypes
+    assert lib.probe_launch.restype is build.INT
+    assert lib.calls == [args, args]
+    assert build.LAUNCHES - before == ({} if rc else {"probe": 2})
+    assert cim_mac.LAUNCHES is build.LAUNCHES
+
+
+_C_TYPES = {"void*": build.PTR, "int": build.INT, "long long": build.INT64,
+            "float": build.FLOAT}
+
+
+@pytest.mark.parametrize("source", sorted(build.sources()))
+def test_declared_signatures_match_the_c_entry_points(source):
+    """Every ``<name>_launch`` of ``csrc/<source>.cu`` is declared with its
+    C parameter types, in order, and nothing else is declared for it."""
+    from repro_torch.kernels import periphery  # noqa: F401  (declares)
+
+    text = build.sources()[source].read_text()
+    want = {}
+    for name, params in re.findall(r"^int (\w+)_launch\(([^)]*)\)", text,
+                                   re.M):
+        types = [re.sub(r"^const |\s*\w+$", "", " ".join(p.split()))
+                 for p in params.split(",")]
+        want[name] = tuple(_C_TYPES[t] for t in types)
+    got = {name: argtypes for (src, name), argtypes
+           in build._SIGNATURES.items() if src == source}
+    assert want and got == want
 
 
 @pytest.mark.parametrize("mode", ["floor", "nearest"])

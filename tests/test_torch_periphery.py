@@ -16,7 +16,9 @@ Marked ``card`` (skipped without a CUDA device; run on the card with
 tests/test_torch_periphery.py``, since ``tests/conftest.py`` imports JAX):
 each kernel against its plain version and against the ATen ops on the
 card, bit for bit, at the granite expert and qwen2 prefill shapes and on
-both sides of the single-block threshold; a 2-layer qwen2-shaped engine's
+both sides of the single-block threshold; ``build.stream`` against
+``torch.cuda.current_stream`` on the default stream, a side stream and in
+a graph's capture; a 2-layer qwen2-shaped engine's
 graphed ``generate`` against its eager one with the kernels captured; a
 2-layer granite engine's tokens and prefill logits against the same
 engine with the kernels forced off.
@@ -32,7 +34,7 @@ import torch
 from repro_torch.configs.base import CIMPolicy, get_config
 from repro_torch.core import engine, quant
 from repro_torch.core.params import PAPER_OP_16ROWS
-from repro_torch.kernels import cim_mac, periphery
+from repro_torch.kernels import build, cim_mac, periphery
 from repro_torch.models import transformer
 from repro_torch.serve.engine import ServeEngine
 
@@ -242,13 +244,14 @@ def test_quantizer_launches(over, clip, monkeypatch):
     x = torch.ones((n // 4, 4), dtype=torch.bfloat16)
     made = []
 
-    def record(kernel, *args):
+    def record(source, kernel, *args):
+        assert source == periphery.SOURCE
         made.append((kernel, args))
         cim_mac.LAUNCHES[kernel] += 1
 
     monkeypatch.setattr(periphery, "_on_card", lambda t: True)
-    monkeypatch.setattr(periphery, "_call", record)
-    monkeypatch.setattr(periphery, "_stream", lambda t: 0)
+    monkeypatch.setattr(build, "launch", record)
+    monkeypatch.setattr(build, "stream", lambda t: 0)
     before = cim_mac.LAUNCHES.copy()
     periphery.quantize_acts(x, 4, clip_pct=clip)
     kernels = [k for k, _ in made]
@@ -373,6 +376,32 @@ def test_epilogue_kernel_equals_plain(card, dtype, fp_out, monkeypatch):
         aten = (y_int - qa.zero_point.to(torch.float32) * plan.colsum)
         assert torch.equal(got, (aten * qa.scale * plan.scale).to(out_dtype))
     torch.cuda.synchronize()
+
+
+@pytest.mark.card
+def test_launch_stream_is_the_current_stream(card):
+    """``build.stream``, the handle every launch is enqueued on, is
+    ``torch.cuda.current_stream``'s: on the default stream, under a side
+    stream and inside a graph's capture."""
+    t = torch.zeros(4, device=card)
+
+    def current():
+        return torch.cuda.current_stream(t.device).cuda_stream
+
+    default = current()
+    assert build.stream(t) == default
+    side = torch.cuda.Stream(device=t.device)
+    with torch.cuda.stream(side):
+        assert build.stream(t) == current() == side.cuda_stream != default
+    assert build.stream(t) == default
+    graph, seen = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        seen.append((build.stream(t), current()))
+        t.add_(1)
+    assert seen[0][0] == seen[0][1] != default
+    graph.replay()
+    torch.cuda.synchronize()
+    assert t.tolist() == [1.0] * 4
 
 
 def _kernel_cfg(arch, **kw):
