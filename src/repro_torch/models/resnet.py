@@ -8,8 +8,9 @@ grouped ADC readout with cutoff quantization).
 Layouts follow the JAX reference at every public function: NHWC
 activations, HWIO filters, [K, N] weight matrices, and im2col features
 in (cin, kh, kw) order. Padding is JAX's "SAME": for a 3x3 stride-2
-conv on an even input that is (0, 1), not the (1, 1) of
-``F.unfold(padding=1)``, so the port pads explicitly.
+conv on an even input that is (0, 1), not a symmetric (1, 1), so the
+port pads the NHWC activation explicitly and takes the windows as
+strided views of it.
 
 Weight-stationary evaluation: ``plan_params(params, policy)`` converts
 every conv/fc weight into its im2col matrix's ``engine.PlannedWeights``
@@ -129,10 +130,11 @@ def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _pad_same(x_nchw: torch.Tensor, kh: int, kw: int, stride: int):
-    h, w = x_nchw.shape[-2:]
+def _pad_same(x: torch.Tensor, kh: int, kw: int, stride: int):
+    """NHWC x zero-padded "SAME" -> (padded NHWC, Ho, Wo)."""
+    h, w = x.shape[1:3]
     ph, pw = _same_pads(h, kh, stride), _same_pads(w, kw, stride)
-    x = F.pad(x_nchw, (pw[0], pw[1], ph[0], ph[1]))
+    x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
     return x, -(-h // stride), -(-w // stride)
 
 
@@ -140,13 +142,16 @@ def im2col(
     x: torch.Tensor, kernel_hw: tuple[int, int], stride: int
 ) -> torch.Tensor:
     """NHWC x -> [B, Ho, Wo, cin*kh*kw] patches, features in (cin, kh, kw)
-    order: ``jax.lax.conv_general_dilated_patches`` with "SAME" padding."""
+    order: ``jax.lax.conv_general_dilated_patches`` with "SAME" padding.
+
+    The windows are strided views of the padded input and the one
+    reshape copies them out, so a conv is the pad and one gather
+    whatever the batch (ATen's ``F.unfold`` loops over the images)."""
     with tracing.span("repro_torch.resnet.im2col"):
         kh, kw = kernel_hw
-        b = x.shape[0]
-        xp, ho, wo = _pad_same(x.permute(0, 3, 1, 2), kh, kw, stride)
-        cols = F.unfold(xp, (kh, kw), stride=stride)  # [B, cin*kh*kw, Ho*Wo]
-        return cols.transpose(1, 2).reshape(b, ho, wo, -1)
+        xp, ho, wo = _pad_same(x, kh, kw, stride)
+        win = xp.unfold(1, kh, stride).unfold(2, kw, stride)  # [B,H,W,C,kh,kw]
+        return win[:, :ho, :wo].reshape(x.shape[0], ho, wo, -1)
 
 
 def conv2d_same(
@@ -154,8 +159,9 @@ def conv2d_same(
 ) -> torch.Tensor:
     """Digital NHWC x HWIO conv with JAX "SAME" padding -> NHWC."""
     kh, kw = w_hwio.shape[:2]
-    xp, _, _ = _pad_same(x.permute(0, 3, 1, 2), kh, kw, stride)
-    y = F.conv2d(xp, w_hwio.permute(3, 2, 0, 1), stride=stride)
+    xp, _, _ = _pad_same(x, kh, kw, stride)
+    y = F.conv2d(xp.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
+                 stride=stride)
     return y.permute(0, 2, 3, 1)
 
 
@@ -204,7 +210,8 @@ def _conv(params_w, x, stride, policy: CIMPolicy | None,
         if want_tap:
             tap(name, x2, wmat)
         # Fresh weights (training / QAT): planned per call, straight-
-        # through gradients through the im2col matrix and the unfold.
+        # through gradients through the im2col matrix and the window
+        # gather (``Tensor.unfold``'s backward, no per-image loop).
         y = x2 @ wmat if digital else engine.matmul(x2, wmat, policy,
                                                     generator=generator)
         cout = wmat.shape[-1]

@@ -35,7 +35,7 @@ The spans (every name starts with ``repro_torch.``):
                       its tokens (its segment under dispatch='ragged',
                       every token in the masked loop)
   resnet.forward      ``models.resnet.forward``: one forward
-  resnet.im2col       ``models.resnet.im2col``: the pad and the unfold
+  resnet.im2col       ``models.resnet.im2col``: the pad and the window gather
   engine.quantize     a quantized backend's activation quantizer
   engine.quantize_kernel  inside it, the launch of the quantizer's kernels
                       (``kernels.periphery``) where the engine takes them

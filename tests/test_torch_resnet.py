@@ -143,10 +143,18 @@ def test_config_matches_benchmark_config():
         np.testing.assert_array_equal(img_t[k], img_j[k])
 
 
-@pytest.mark.parametrize("stride", [1, 2])
-@pytest.mark.parametrize("kh", [1, 3])
-def test_im2col_matches_conv_patches_bit_exact(stride, kh):
-    x = np.random.default_rng(0).standard_normal((2, 32, 32, 5))
+# (kh, stride) over the 32 x 32 x 5 input, an odd non-square 7 x 9 (the
+# asymmetric "SAME" pads at stride 2) and a batch of 4 with 24 channels.
+IM2COL_SHAPES = {"": (2, 32, 32, 5), "-7x9": (2, 7, 9, 5),
+                 "-b4c24": (4, 16, 16, 24)}
+IM2COL_CASES = [pytest.param(kh, stride, shape, id=f"{kh}-{stride}{tag}")
+                for tag, shape in IM2COL_SHAPES.items()
+                for kh in (1, 3) for stride in (1, 2)]
+
+
+@pytest.mark.parametrize("kh,stride,shape", IM2COL_CASES)
+def test_im2col_matches_conv_patches_bit_exact(kh, stride, shape):
+    x = np.random.default_rng(0).standard_normal(shape)
     x = x.astype(np.float32)
     want = jax.lax.conv_general_dilated_patches(
         jnp.asarray(x), (kh, kh), (stride, stride), "SAME",
@@ -154,7 +162,7 @@ def test_im2col_matches_conv_patches_bit_exact(stride, kh):
     got = tresnet.im2col(torch.from_numpy(x), (kh, kh), stride)
     assert got.shape == tuple(want.shape)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    w = np.random.default_rng(1).standard_normal((kh, kh, 5, 7))
+    w = np.random.default_rng(1).standard_normal((kh, kh, shape[-1], 7))
     w = w.astype(np.float32)
     conv_j = jax.lax.conv_general_dilated(
         jnp.asarray(x), jnp.asarray(w), (stride, stride), "SAME",
@@ -166,6 +174,41 @@ def test_im2col_matches_conv_patches_bit_exact(stride, kh):
     np.testing.assert_array_equal(
         tresnet._im2col_weight(torch.from_numpy(w)).numpy(),
         np.asarray(jresnet._im2col_weight(jnp.asarray(w))))
+
+
+def _unfold_im2col(x, kh, stride):
+    """The oracle: ATen's ``F.unfold`` on the NCHW view padded "SAME"."""
+    h, w = x.shape[1:3]
+    ph = tresnet._same_pads(h, kh, stride)
+    pw = tresnet._same_pads(w, kh, stride)
+    xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2),
+                                 (pw[0], pw[1], ph[0], ph[1]))
+    cols = torch.nn.functional.unfold(xp, (kh, kh), stride=stride)
+    return cols.transpose(1, 2).reshape(x.shape[0], -(-h // stride),
+                                        -(-w // stride), -1)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("kh", [1, 3])
+def test_im2col_gradient_matches_unfold(kh, stride):
+    """The input gradient under a seeded upstream gradient (QAT's path
+    through the patches) against ``F.unfold``'s. Windows that do not
+    overlap (1 x 1) give each input one term, so the gradients are
+    equal; overlapping 3 x 3 windows sum up to nine terms in another
+    order, held to the QAT tests' float32 tolerance."""
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((3, 7, 9, 6), generator=gen).requires_grad_()
+    got = tresnet.im2col(x, (kh, kh), stride)
+    want = _unfold_im2col(x, kh, stride)
+    assert torch.equal(got, want)
+    g = torch.randn(got.shape, generator=gen)
+    (dx,) = torch.autograd.grad(got, x, g)
+    (dx_want,) = torch.autograd.grad(want, x, g)
+    if kh == 1:
+        assert torch.equal(dx, dx_want)
+    else:
+        np.testing.assert_allclose(dx.numpy(), dx_want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_checkpoint_fp_and_exact_match_reference(checkpoint):
